@@ -1,0 +1,109 @@
+"""Batched serving entry point: prefill a batch of prompts, then decode.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --batch 4 --prompt-len 512 --gen 32 --max-len 1024
+
+Runs on the card; ``--device cpu`` runs the same path with the kernels' plain
+versions (for the smoke configs, ``--arch tinyllama-1.1b-smoke``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+import repro_torch.configs as configs
+from repro_torch import resolve_device
+from repro_torch.models import LanguageModel
+from repro_torch.models.attention import IMPLS
+from repro_torch.serve.step import make_decode_step
+
+
+class ServingEngine:
+    """Minimal batched engine over the decode step. The KV cache lives on
+    the model's device in the model's dtype and is updated in place."""
+
+    def __init__(self, model: LanguageModel, batch: int, max_len: int,
+                 sample: str = "greedy", temperature: float = 1.0, top_k: int = 0,
+                 generator: torch.Generator | None = None):
+        self.model = model
+        self.batch = batch
+        self.max_len = max_len
+        self.cache = model.init_cache(batch, max_len)
+        self.decode = make_decode_step(model, sample, temperature, top_k)
+        self.generator = generator
+        self.lengths = np.zeros(batch, np.int32)
+        self.prefill_logits = None      # fp32 (B,V) logits at the last prompt position
+
+    def _tokens(self, prompts) -> torch.Tensor:
+        prompts = torch.as_tensor(prompts).to(self.model.device)
+        if prompts.dim() != 2 or prompts.shape[0] != self.batch:
+            raise ValueError(f"prompts must be ({self.batch}, prompt_len), "
+                             f"got {tuple(prompts.shape)}")
+        return prompts
+
+    def prefill(self, prompts):
+        """Teacher-forced prefill via the decode step (token at a time —
+        simple and exact). Returns the first generated token, (B,1)."""
+        prompts = self._tokens(prompts)
+        plen = prompts.shape[1]
+        if not 1 <= plen <= self.max_len:
+            raise ValueError(f"prompt length {plen} outside [1, {self.max_len}]")
+        toks = None
+        for t in range(plen):
+            toks, self.prefill_logits = self.decode(
+                self.cache, prompts[:, t:t + 1], t, self.generator)
+        self.lengths[:] = plen
+        return toks
+
+    def generate(self, prompts, steps: int) -> torch.Tensor:
+        """Prefill, then ``steps`` tokens for every sequence: (B, steps) int32
+        on the model's device."""
+        prompts = self._tokens(prompts)
+        pos = prompts.shape[1]
+        if pos + steps - 1 > self.max_len:
+            raise ValueError(f"prompt {pos} + {steps} steps exceed max_len {self.max_len}")
+        next_tok = self.prefill(prompts)
+        out = [next_tok]
+        for i in range(steps - 1):
+            next_tok, _ = self.decode(self.cache, next_tok, pos + i, self.generator)
+            out.append(next_tok)
+        self.lengths += steps
+        return torch.cat(out, dim=1)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--impl", default="kernel", choices=IMPLS)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA device (an error without one); "
+                         "'cpu' runs the kernels' plain versions")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get(args.arch)
+    model = LanguageModel(cfg, impl=args.impl)
+    model.init(torch.Generator(device=device).manual_seed(0), device=device)
+    engine = ServingEngine(model, args.batch, args.max_len)
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (args.batch, args.prompt_len)).astype(np.int32)
+    t0 = time.time()
+    toks = engine.generate(prompts, args.gen).cpu()    # the copy waits for the device
+    dt = time.time() - t0
+    print(f"generated {tuple(toks.shape)} tokens in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s) on {device}")
+    print("sample:", toks[0][:12].tolist())
+    return toks
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""The port stands alone: it imports neither jax nor the JAX package, it asks
+for the card unless told otherwise, and on the CPU no kernel is launched."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+
+
+def imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_and_no_reference_package(path):
+    assert not imported_roots(path) & FORBIDDEN
+
+
+def test_every_module_is_checked():
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
+    for needed in ("__init__.py", "convert.py", "configs/base.py", "models/lm.py",
+                   "models/attention.py", "kernels/build.py", "kernels/ops.py",
+                   "kernels/flash_attention.py", "kernels/flash_decode.py",
+                   "serve/step.py", "launch/serve.py"):
+        assert needed in names
+    for cu in ("flash_attention.cu", "flash_decode.cu"):
+        assert (PORT / "csrc" / cu).is_file()
+
+
+def test_importing_the_port_leaves_jax_out_of_the_process():
+    code = ("import sys, importlib, pkgutil, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the test is about one that has none")
+
+
+def test_entry_points_raise_without_a_card():
+    needs_no_card()
+    import repro_torch
+    import repro_torch.configs as configs
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import serve
+    from repro_torch.models import LanguageModel
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.default_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device("cuda")
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "tinyllama-1.1b-smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "tinyllama-1.1b-smoke", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LanguageModel(configs.get("tinyllama-1.1b-smoke")).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({})
+
+
+def test_cpu_tensors_launch_no_kernel_and_wrappers_refuse_them():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    before = (flash_attention.launches, flash_decode.launches)
+    q = torch.randn(1, 8, 4, 32)
+    k = torch.randn(1, 8, 2, 32)
+    ops.flash_attention_op(q, k, k, causal=True)
+    ops.flash_decode_op(q[:, 0], k, k, 5)
+    # the kernel wrappers themselves take CUDA tensors only: no silent plain version
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_decode(q[:, 0], k, k, 5)
+    assert (flash_attention.launches, flash_decode.launches) == before
+
+
+def test_kernel_build_finds_its_sources_and_raises_without_a_compiler(monkeypatch):
+    import shutil
+
+    from repro_torch.kernels import build
+
+    names = [p.name for p in build.sources()]
+    assert names == sorted(names) and {"flash_attention.cu", "flash_decode.cu"} <= set(names)
+    # the library's name follows the sources' content and the flags
+    digest = build._digest(build.sources())
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-DX",))
+    assert build._digest(build.sources()) != digest
+    if shutil.which("nvcc") is None:
+        monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.find_nvcc()
+
+
+def test_chip_smoke_fails_without_a_card():
+    needs_no_card()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
