@@ -28,3 +28,20 @@ def params_from_numpy(tree: dict, dtype=torch.float32, device=None) -> dict:
         return torch.tensor(arr).to(device=device, dtype=dtype)   # torch.tensor copies
 
     return walk(tree)
+
+
+def opt_state_from_numpy(state: dict, moment_dtype=torch.float32, device=None) -> dict:
+    """A reference optimizer state ``{"step", "mu", "nu"[, "master"][, "ef"]}``
+    as numpy (float32 trees, an integer step) -> the port's, for
+    ``train.apply_updates``: ``mu``/``nu`` in ``moment_dtype``, ``master``
+    and ``ef`` in fp32, ``step`` an int32 scalar, all on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
+    out = {"step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                device=device),
+           "mu": params_from_numpy(state["mu"], moment_dtype, device),
+           "nu": params_from_numpy(state["nu"], moment_dtype, device)}
+    for key in ("master", "ef"):
+        if key in state:
+            out[key] = params_from_numpy(state[key], torch.float32, device)
+    return out

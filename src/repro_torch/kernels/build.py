@@ -100,6 +100,18 @@ def load_library() -> ctypes.CDLL:
                                         i32, i32, i32, i32, i32, i32,
                                         f32, i32, i32, ptr]
     lib.flash_attention_fwd.restype = i32
+    # (q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH, D, scale, causal,
+    #  is_bf16, stream)
+    lib.flash_attention_bwd_dq.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                           i32, i32, i32, i32, i32, i32,
+                                           f32, i32, i32, ptr]
+    lib.flash_attention_bwd_dq.restype = i32
+    # (q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, KVH, D, scale, causal,
+    #  is_bf16, stream)
+    lib.flash_attention_bwd_dkv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                            i32, i32, i32, i32, i32, i32,
+                                            f32, i32, i32, ptr]
+    lib.flash_attention_bwd_dkv.restype = i32
     # (q, k, v, out, partial, B, S, H, KVH, D, kv_len, n_splits, split_len,
     #  scale, is_bf16, stream)
     lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,
@@ -117,6 +129,17 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{what}: launch failed with code {code}: {msg}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel writes its output through a raw pointer, so the output has no
+    ``grad_fn``: called with grad mode on and an input that requires grad it
+    would drop the gradient without a word. Raise instead; the autograd
+    Function in ``kernels.ops`` is the caller that carries the gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(f"{what}: an input requires grad and grad mode is on, but the "
+                           "kernel's output would carry no gradient; call it through "
+                           "kernels.ops (or under torch.no_grad())")
 
 
 def check_cuda_tensors(**tensors) -> None:

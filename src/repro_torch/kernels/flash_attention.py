@@ -61,6 +61,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     """Launches the CUDA kernel on the current stream. CUDA tensors, bf16 or
     fp32, contiguous, head dim 32, 64 or 128. Returns ``(out, lse)``."""
     check_inputs(q, k, v, causal)
+    build.refuse_grad("flash_attention", q, k, v)
     build.check_cuda_tensors(q=q, k=k, v=v)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]

@@ -70,6 +70,7 @@ def flash_decode(q, k, v, kv_len: int, scale: float | None = None):
     """Launches the CUDA kernels on the current stream. CUDA tensors, bf16 or
     fp32, contiguous, head dim a multiple of 8."""
     check_inputs(q, k, v, kv_len)
+    build.refuse_grad("flash_decode", q, k, v)
     build.check_cuda_tensors(q=q, k=k, v=v)
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]

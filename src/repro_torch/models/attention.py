@@ -2,8 +2,10 @@
 
 * ``naive``  — materializes the scores; small shapes and oracles.
 * ``kernel`` — the hand-written kernels in ``repro_torch.kernels``:
-  ``flash_attention`` for a full sequence, ``flash_decode`` for one token
-  against the cache.
+  ``flash_attention`` for a full sequence, differentiable (K1 forward, K2a/K2b
+  backward, one autograd Function), ``flash_decode`` for one token against
+  the cache. It is the counterpart of the reference's ``impl="chunked"``
+  training path; runtime-position masking (sequence packing) is not ported.
 
 The decode path takes a KV cache and the host-side position of the new token,
 and writes the cache in place.

@@ -1,10 +1,12 @@
-"""Shared layer primitives: RMSNorm, RoPE, SwiGLU FFN, embeddings.
+"""Shared layer primitives: RMSNorm, RoPE, SwiGLU FFN, embeddings, chunked
+cross-entropy.
 Pure functions over param dicts (see ``models.base``). Weights are stored
 ``(d_in, d_out)`` and applied as ``x @ W``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.base import P, Specs
 
@@ -86,6 +88,38 @@ def unembed_weight(params):
     if "lm_head" in params:
         return params["lm_head"]
     return params["embedding"].T
+
+
+def _chunk_loss(hx, w, lx, mx):
+    logits = (hx @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None])[..., 0]
+    return ((lse - gold) * mx).sum()
+
+
+def chunked_cross_entropy(params, h, labels, chunk: int = 512, mask=None):
+    """Vocab projection + softmax cross-entropy without materializing the
+    full logits. h: (B,S,D); labels: (B,S); mask: optional (B,S) weights.
+
+    S is padded to a multiple of ``chunk``; each chunk's (B, chunk, V) logits
+    are taken in the hidden states' dtype and cast to fp32, as the reference
+    does, and recomputed in the backward (``torch.utils.checkpoint`` per
+    chunk). Returns the masked sum over ``max(mask.sum(), 1)``."""
+    w = unembed_weight(params)
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    mask = torch.ones((b, s), dtype=torch.float32, device=h.device) if mask is None else mask.float()
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(_chunk_loss, h[:, sl], w, labels[:, sl].long(), mask[:, sl],
+                                   use_reentrant=False, preserve_rng_state=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
 
 
 def logits_for_tokens(params, h):

@@ -1,0 +1,113 @@
+"""Training step: loss and gradients -> (optional) gradient compression ->
+AdamW.
+
+Gradient compression options, as in the reference:
+
+* ``None``      gradients in the parameters' dtype.
+* ``"bf16"``    explicit cast before the optimizer (no-op with bf16 params).
+* ``"int8_ef"`` per-tensor int8 quantization with persistent error feedback
+                carried in the optimizer state (1-bit-Adam-style EF,
+                arXiv:2102.02888): the quantization error is re-injected on
+                the next step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.train import optim as optim_mod
+from repro_torch.train.optim import tree_leaves, tree_map, tree_unflatten
+
+
+def quantize_int8(x32):
+    amax = torch.max(torch.abs(x32)) + 1e-12
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    return q.to(torch.float32) * scale
+
+
+def compress_grads(grads, method: str | None, ef_state):
+    """Returns (effective_grads, new_ef_state)."""
+    if method is None:
+        return grads, ef_state
+    if method == "bf16":
+        return tree_map(lambda g: g.to(torch.bfloat16), grads), ef_state
+    if method == "int8_ef":
+        def one(g, e):
+            g32 = g.float() + e
+            q, s = quantize_int8(g32)
+            deq = dequantize_int8(q, s)
+            return deq.to(g.dtype), g32 - deq
+
+        outs = [one(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(ef_state))]
+        return (tree_unflatten(grads, [o[0] for o in outs]),
+                tree_unflatten(grads, [o[1] for o in outs]))
+    raise ValueError(method)
+
+
+def init_ef_state(params, method: str | None):
+    if method != "int8_ef":
+        return None
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+
+
+def make_train_step(model, opt_cfg: optim_mod.OptimConfig,
+                    grad_compression: str | None = None, microbatches: int = 1):
+    """Returns ``train_step(params, opt_state, batch, rng=None) -> (params,
+    opt_state, metrics)``. ``params`` is ``model.params``: the step updates
+    it and ``opt_state`` in place and returns them. ``opt_state`` carries the
+    EF buffers when compressing. ``batch`` holds tensors on the model's
+    device; ``rng`` is a ``torch.Generator`` there (stochastic rounding).
+
+    ``microbatches > 1`` accumulates gradients: the batch is split along dim
+    0, each part's gradients are summed in fp32, and loss and gradients are
+    divided by ``microbatches``."""
+
+    def grad_fn(params, batch):
+        loss = model.loss(batch)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten(params, grads)
+
+    def train_step(params, opt_state, batch, rng=None):
+        if params is not model.params:
+            raise ValueError("train_step updates model.params in place: pass model.params")
+        if microbatches <= 1:
+            loss, grads = grad_fn(params, batch)
+        else:
+            def split(x):
+                return x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+
+            parts = {k: split(v) for k, v in batch.items()}
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            for i in range(microbatches):
+                l, g = grad_fn(params, {k: v[i] for k, v in parts.items()})
+                for acc, gi in zip(tree_leaves(gsum), tree_leaves(g)):
+                    acc.add_(gi.float())
+                lsum = lsum + l
+            grads = tree_map(lambda g: g / microbatches, gsum)
+            loss = lsum / microbatches
+        ef = opt_state.get("ef")
+        grads, new_ef = compress_grads(grads, grad_compression, ef)
+        core = {k: v for k, v in opt_state.items() if k != "ef"}
+        params, new_core, metrics = optim_mod.apply_updates(params, grads, core, opt_cfg, rng=rng)
+        if new_ef is not None:
+            new_core["ef"] = new_ef
+        metrics = dict(metrics, loss=loss)
+        return params, new_core, metrics
+
+    return train_step
+
+
+def init_opt_state(params, opt_cfg: optim_mod.OptimConfig,
+                   grad_compression: str | None = None):
+    state = optim_mod.init_state(params, opt_cfg)
+    ef = init_ef_state(params, grad_compression)
+    if ef is not None:
+        state["ef"] = ef
+    return state

@@ -33,11 +33,13 @@ def test_source_imports_no_jax_and_no_reference_package(path):
 def test_every_module_is_checked():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
     for needed in ("__init__.py", "convert.py", "configs/base.py", "models/lm.py",
-                   "models/attention.py", "kernels/build.py", "kernels/ops.py",
-                   "kernels/flash_attention.py", "kernels/flash_decode.py",
-                   "serve/step.py", "launch/serve.py"):
+                   "models/attention.py", "models/layers.py", "kernels/build.py",
+                   "kernels/ops.py", "kernels/flash_attention.py",
+                   "kernels/flash_attention_bwd.py", "kernels/flash_decode.py",
+                   "serve/step.py", "launch/serve.py", "train/__init__.py", "train/optim.py",
+                   "train/step.py", "data/pipeline.py", "launch/train.py"):
         assert needed in names
-    for cu in ("flash_attention.cu", "flash_decode.cu"):
+    for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu"):
         assert (PORT / "csrc" / cu).is_file()
 
 
@@ -64,7 +66,8 @@ def test_entry_points_raise_without_a_card():
     import repro_torch
     import repro_torch.configs as configs
     from repro_torch.convert import params_from_numpy
-    from repro_torch.launch import serve
+    from repro_torch.convert import opt_state_from_numpy
+    from repro_torch.launch import serve, train
     from repro_torch.models import LanguageModel
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -80,6 +83,12 @@ def test_entry_points_raise_without_a_card():
         LanguageModel(configs.get("tinyllama-1.1b-smoke")).init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt_state_from_numpy({"step": 0, "mu": {}, "nu": {}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--device", "cuda"])
 
 
 def test_cpu_tensors_launch_no_kernel_and_wrappers_refuse_them():
@@ -100,13 +109,60 @@ def test_cpu_tensors_launch_no_kernel_and_wrappers_refuse_them():
     assert (flash_attention.launches, flash_decode.launches) == before
 
 
+def test_backward_on_cpu_launches_no_kernel_and_its_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention_bwd import (attention_delta, flash_attention_bwd,
+                                                         flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+
+    counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    q = torch.randn(1, 300, 4, 32, requires_grad=True)
+    k = torch.randn(1, 300, 2, 32, requires_grad=True)
+    out = ops.flash_attention_op(q, k, k, causal=True)
+    out.sum().backward()
+    assert q.grad is not None and k.grad is not None
+    lse = torch.zeros(1, 300, 4)
+    x, kk, do = q.detach(), k.detach(), out.detach()
+    delta = attention_delta(do, do)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd(x, kk, kk, do, lse, do, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_dq(x, kk, kk, do, lse, delta, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_dkv(x, kk, kk, do, lse, delta, causal=True)
+    assert [c.launches for c in counters] == before
+
+
+def test_forward_wrappers_refuse_inputs_whose_gradient_they_would_drop():
+    """K1 and K3 write through raw pointers: their outputs carry no grad_fn.
+    With grad mode on and an input that requires grad they raise, whatever
+    the device, before anything else; only the autograd Function calls K1
+    there (under its own no-grad forward)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    q = torch.randn(1, 8, 4, 32, requires_grad=True)
+    k = torch.randn(1, 8, 2, 32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_attention(q, k, k, causal=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_decode(q[:, 0], k, k, 5)
+    with torch.no_grad():               # no gradient to drop: the device check speaks
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_attention(q, k, k, causal=True)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_decode(q[:, 0], k, k, 5)
+
+
 def test_kernel_build_finds_its_sources_and_raises_without_a_compiler(monkeypatch):
     import shutil
 
     from repro_torch.kernels import build
 
     names = [p.name for p in build.sources()]
-    assert names == sorted(names) and {"flash_attention.cu", "flash_decode.cu"} <= set(names)
+    assert names == sorted(names)
+    assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu"} <= set(names)
     # the library's name follows the sources' content and the flags
     digest = build._digest(build.sources())
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-DX",))
