@@ -18,6 +18,23 @@ Phases, one JSON object a line:
            and `ServingEngine.generate` for 32 greedy steps (flash_decode at
            every layer of every step), with the launch counts the path must
            show, and the same two steps through impl="naive" as the reference
+  checks   (hybrid path) K4 fused_ffn at zamba2-1.2b's prefill (T=2048) and
+           decode (T=4) shapes, tinyllama's F=5632, T=333 and fp32; K5
+           ssd_scan at the prefill shape (N=64; again with Mamba-2's small dt,
+           bf16 and fp32, so the state carries across chunks), mamba2-1.3b's
+           N=128, S=333, S=1 and fp32 shapes, y and final state; bf16 outputs
+           held elementwise and by relative norm; each launched twice and
+           required bit-identical; K4's allocation at the prefill shape held
+           below one (T x F) bf16 tensor
+  serve_hybrid  zamba2-1.2b at full width and depth (38 Mamba-2 blocks, 6
+           calls of the shared attention + MLP block), bf16, seeded random
+           weights, impl="kernel" with fused_ffn: the prefill step on 4 x 512
+           prompts (K5 38, K1 6, K4 6 launches) and `generate` for 16 greedy
+           steps (K3 and K4 6 x 527 each), against impl="naive" without
+           fused_ffn on the same weights; layer 0's SSM state after 512
+           tokens through the kernel scan against 512 decode steps; times
+           (host clock, CUDA-graph replay) and a torch.profiler breakdown of
+           one prefill step and one decode step
   train    tinyllama-1.1b at full width and depth, bf16 with fp32 master
            weights and moments, remat "full": loss and every gradient of
            impl="kernel" against impl="naive", then 8 steps of
@@ -61,6 +78,25 @@ BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 
 ARCH, BATCH, PROMPT_LEN, GEN_STEPS, MAX_LEN = "tinyllama-1.1b", 4, 512, 32, 1024
+HYBRID_ARCH, HYBRID_GEN_STEPS = "zamba2-1.2b", 16
+# (atol, rtol): |got - want| <= atol + rtol |want| in every element.
+# K5 computes in fp32 from the inputs' values, as its plain version does: on
+# bf16 inputs the two differ by summation order and by a flip of y's one
+# rounding to bf16 (at most 2^-8 |y|), so y is held at 2e-2 + 2e-2 |y| and
+# the fp32 state at the reference test's own 2e-4 / 2e-3, as all of fp32 is.
+SSD_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (2e-2, 2e-2)}
+# K4 fp32 at 5x the base tolerance, as the reference's test holds its Pallas
+# kernel. bf16: the kernel rounds h = silu(g) u to bf16 as the down product's
+# operand and rounds y once, the plain version rounds only y; the first run
+# measured one bf16 ulp of a |y| in [2, 4), 0.0156, so 3e-2 + 2e-2 |y|.
+FFN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
+# bf16 K4 and K5 outputs: ||got - want|| / ||want|| at most 1e-2, several
+# times what one rounding of each side (2^-9 |y| at most) can give
+BF16_REL_NORM = 1e-2
+# Mamba-2's dt initialisation: log-uniform in [1e-3, 1e-1]. At these dt the
+# state carries across K5's 64-token chunks (exp(sum dt A) ~ 0.2 a chunk);
+# at dt = softplus(N(0, 1)) it has decayed within a few tokens.
+SSD_SMALL_DT = (1e-3, 1e-1)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
 # kernel path against naive path on the card, bf16: each gradient leaf's
 # relative norm error, and the first step's loss. Both bf16 paths are 1-3 %
@@ -138,6 +174,35 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> flo
     return err
 
 
+def scaled_compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float,
+                   scaled: bool) -> float:
+    """|got - want| <= atol' + rtol |want|, where atol' is ``atol`` or, when
+    ``scaled``, ``atol * max|want|`` (bf16 rounding grows with the values)."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: bad shape {tuple(got.shape)} or non-finite values")
+    err = (got - want).abs()
+    bound_abs = atol * float(want.abs().max()) if scaled else atol
+    if not bool((err <= bound_abs + rtol * want.abs()).all()):
+        raise AssertionError(f"{name}: max abs error {float(err.max())} exceeds "
+                             f"{bound_abs} + {rtol}|want|")
+    return float(err.max())
+
+
+def held(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float,
+         rel_norm: float | None = None) -> dict:
+    """|got - want| <= atol + rtol |want| in every element and, where
+    ``rel_norm`` is given, ||got - want|| / ||want|| <= rel_norm. Returns the
+    errors with the largest and the RMS |want| beside them."""
+    err = scaled_compare(name, got, want, atol, rtol, scaled=False)
+    rel = rel_err(got, want)
+    if rel_norm is not None and not rel <= rel_norm:
+        raise AssertionError(f"{name}: relative norm error {rel} exceeds {rel_norm}")
+    w = want.float()
+    return {"max_abs_err": err, "rel_norm_err": rel, "want_max_abs": float(w.abs().max()),
+            "want_rms": float(w.square().mean().sqrt())}
+
+
 def randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
@@ -212,19 +277,6 @@ def check_flash_decode(gen, *, b, h, kvh, d, s, kv_len, dtype, timed=False) -> d
     return row
 
 
-def bwd_compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
-    got, want = got.float(), want.float()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: non-finite values")
-    err = (got - want).abs()
-    tol = BWD_TOL[dtype]
-    atol = tol if dtype == torch.float32 else tol * float(want.abs().max())
-    if not bool((err <= atol + tol * want.abs()).all()):
-        raise AssertionError(f"{name}: max abs error {float(err.max())} exceeds "
-                             f"{atol} + {tol}|want|")
-    return float(err.max())
-
-
 def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=False) -> dict:
     """K2a and K2b against their plain versions, and twice on the same inputs
     (the two launches must agree bit for bit)."""
@@ -253,7 +305,8 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "D": d,
                      "dtype": str(dtype).split(".")[-1], "causal": causal},
            "tol": BWD_TOL[dtype],
-           "max_abs_err": {n: bwd_compare(f"flash_attention_bwd {n}", x, y, dtype)
+           "max_abs_err": {n: scaled_compare(f"flash_attention_bwd {n}", x, y, BWD_TOL[dtype],
+                                             BWD_TOL[dtype], dtype != torch.float32)
                            for n, x, y in zip(("dq", "dk", "dv"), got, want)},
            "max_abs_want": {n: float(y.float().abs().max()) for n, y in zip(("dq", "dk", "dv"), want)},
            "bit_identical": all(torch.equal(x, y) for x, y in zip(got, again))}
@@ -350,6 +403,159 @@ def phase_checks(cfg) -> tuple[dict, dict]:
     for row in rows:
         emit({"phase": "checks", **row})
     return fa_path, fd_path
+
+
+def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False) -> dict:
+    """K4 against its plain version, twice on the same inputs (bit-identical),
+    with model-like scales (x of unit RMS, weights of std 1/sqrt(fan-in))."""
+    from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_plain, split_plan
+    from repro_torch.models.layers import ffn
+
+    x = randn(gen, (t, d), dtype)
+    wg = (randn(gen, (d, f), torch.float32) * d ** -0.5).to(dtype)
+    wu = (randn(gen, (d, f), torch.float32) * d ** -0.5).to(dtype)
+    wd = (randn(gen, (f, d), torch.float32) * f ** -0.5).to(dtype)
+    got = fused_ffn(x, wg, wu, wd)
+    again = fused_ffn(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    atol, rtol = FFN_TOL[dtype]
+    rel_norm = BF16_REL_NORM if dtype == torch.bfloat16 else None
+    row = {"kernel": "fused_ffn",
+           "shape": {"T": t, "D": d, "F": f, "dtype": str(dtype).split(".")[-1]},
+           "splits": split_plan(t, f)[0],
+           "tol": {"atol": atol, "rtol": rtol, "rel_norm": rel_norm},
+           **held("fused_ffn", got, fused_ffn_plain(x, wg, wu, wd), atol, rtol, rel_norm),
+           "bit_identical": bool(torch.equal(got, again))}
+    if not row["bit_identical"]:
+        raise AssertionError("fused_ffn: two launches on the same inputs differ")
+    del again
+    if alloc:
+        # what one call allocates besides its output: no (T x F) tensor may
+        # reach device memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fused_ffn(x, wg, wu, wd)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+        limit = t * f * 2
+        row.update(alloc_extra_bytes=extra, alloc_limit_bytes=limit)
+        if extra >= limit:
+            raise AssertionError(f"fused_ffn allocated {extra} bytes besides its output, "
+                                 f"not fewer than one (T x F) bf16 tensor ({limit})")
+        del out
+    if timed:
+        nbytes = x.element_size() * (2 * x.numel() + wg.numel() + wu.numel() + wd.numel())
+        flops = 6 * t * d * f
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        params = {"w_gate": wg, "w_up": wu, "w_down": wd}
+        row.update(
+            kernel_ms=device_ms(lambda: fused_ffn(x, wg, wu, wd)),
+            call_ms=call_ms(lambda: fused_ffn(x, wg, wu, wd)),
+            plain_ms=device_ms(lambda: fused_ffn_plain(x, wg, wu, wd), launches=3),
+            library_ms=device_ms(lambda: ffn(params, x)),
+            library_covers="three cuBLAS products + silu*mul (eager layers.ffn), several calls",
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+    return row
+
+
+def ssd_flops(b, s, h, p, n) -> int:
+    """What K5 does: per (b, h) and 64-token chunk, C B^T, the masked-score
+    product, the inter-chunk product and the state update, all in full."""
+    from repro_torch.kernels.ssd_scan import CHUNK as L
+    chunks = -(-s // L)
+    return b * h * chunks * 2 * L * (L * n + L * p + 2 * n * p)
+
+
+def check_ssd_scan(gen, *, b, s, h, p, n, dtype, timed=False, dt_range=None) -> dict:
+    """K5 against its plain version (y and the final state), twice on the
+    same inputs (bit-identical). Inputs at the model's scales: A = -exp(.) per
+    head, dt a softplus of N(0, 1) or, with ``dt_range``, log-uniform in it."""
+    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan, ssd_scan_plain
+
+    x = (randn(gen, (b, s, h, p), torch.float32) * 0.5).to(dtype)
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(randn(gen, (b, s, h), torch.float32))
+    else:
+        lo, hi = math.log(dt_range[0]), math.log(dt_range[1])
+        dt = torch.exp(lo + (hi - lo) * torch.rand((b, s, h), generator=gen, device="cuda"))
+    a = -torch.exp(randn(gen, (h,), torch.float32) * 0.3)
+    bm = (randn(gen, (b, s, n), torch.float32) * 0.3).to(dtype)
+    cm = (randn(gen, (b, s, n), torch.float32) * 0.3).to(dtype)
+    y, st = ssd_scan(x, dt, a, bm, cm)
+    y2, st2 = ssd_scan(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    want_y, want_st = ssd_scan_plain(x, dt, a, bm, cm)
+    atol, rtol = SSD_TOL[dtype]
+    st_atol, st_rtol = SSD_TOL[torch.float32]
+    rel_norm = BF16_REL_NORM if dtype == torch.bfloat16 else None
+    y_err = held("ssd_scan y", y, want_y, atol, rtol, rel_norm)
+    st_err = held("ssd_scan state", st, want_st, st_atol, st_rtol)
+    row = {"kernel": "ssd_scan",
+           "shape": {"B": b, "S": s, "H": h, "P": p, "N": n, "dtype": str(dtype).split(".")[-1]},
+           "dt": "softplus(N(0,1))" if dt_range is None else f"log-uniform {list(dt_range)}",
+           # share of the state one 64-token chunk carries into the next
+           "chunk_carry_mean": float(torch.exp(dt[:, :CHUNK].sum(1) * a).mean()),
+           "tol": {"y": {"atol": atol, "rtol": rtol, "rel_norm": rel_norm},
+                   "state": {"atol": st_atol, "rtol": st_rtol}},
+           **y_err,
+           "state_max_abs_err": st_err["max_abs_err"],
+           "state_rel_norm_err": st_err["rel_norm_err"],
+           "bit_identical": bool(torch.equal(y, y2) and torch.equal(st, st2))}
+    if not row["bit_identical"]:
+        raise AssertionError("ssd_scan: two launches on the same inputs differ")
+    if timed:
+        # each input read once, y and the final state written once
+        nbytes = (x.element_size() * (2 * x.numel() + bm.numel() + cm.numel())
+                  + 4 * (dt.numel() + a.numel() + st.numel()))
+        flops = ssd_flops(b, s, h, p, n)
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        row.update(
+            kernel_ms=device_ms(lambda: ssd_scan(x, dt, a, bm, cm)),
+            call_ms=call_ms(lambda: ssd_scan(x, dt, a, bm, cm)),
+            plain_ms=device_ms(lambda: ssd_scan_plain(x, dt, a, bm, cm), launches=3),
+            library_ms=None,
+            library_none_because="no single PyTorch call computes the SSD scan",
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+    return row
+
+
+def phase_hybrid_checks(cfg, ssm_cfg) -> dict:
+    """K4 and K5 over the hybrid path's shapes and the awkward ones; returns
+    the timed rows at the path's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    d, f, tokens = cfg.d_model, cfg.d_ff, BATCH * PROMPT_LEN
+    rows = {
+        "ffn_prefill": check_fused_ffn(gen, t=tokens, d=d, f=f, dtype=bf16, timed=True, alloc=True),
+        "ffn_decode": check_fused_ffn(gen, t=BATCH, d=d, f=f, dtype=bf16, timed=True),
+        "ssd_prefill": check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads,
+                                      p=cfg.ssm_head_dim, n=cfg.ssm_state, dtype=bf16, timed=True),
+    }
+    others = [
+        check_fused_ffn(gen, t=tokens, d=2048, f=5632, dtype=bf16),    # tinyllama's F
+        check_fused_ffn(gen, t=333, d=d, f=f, dtype=bf16),              # no tile multiple
+        check_fused_ffn(gen, t=256, d=128, f=512, dtype=bf16),
+        check_fused_ffn(gen, t=256, d=128, f=512, dtype=fp32),          # tests/test_kernels.py:57
+        check_fused_ffn(gen, t=512, d=256, f=1024, dtype=fp32),
+        check_fused_ffn(gen, t=128, d=64, f=256, dtype=fp32),
+        # the prefill shape with the state carried across chunks, bf16 and fp32
+        check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads, p=cfg.ssm_head_dim,
+                       n=cfg.ssm_state, dtype=bf16, dt_range=SSD_SMALL_DT),
+        check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads, p=cfg.ssm_head_dim,
+                       n=cfg.ssm_state, dtype=fp32, dt_range=SSD_SMALL_DT),
+        check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=ssm_cfg.ssm_heads, p=ssm_cfg.ssm_head_dim,
+                       n=ssm_cfg.ssm_state, dtype=bf16),                # mamba2-1.3b's N=128
+        check_ssd_scan(gen, b=2, s=333, h=8, p=64, n=64, dtype=bf16),   # no chunk multiple
+        check_ssd_scan(gen, b=2, s=1, h=8, p=64, n=64, dtype=bf16),
+        check_ssd_scan(gen, b=2, s=256, h=4, p=32, n=16, dtype=fp32),   # tests/test_kernels.py:77
+        check_ssd_scan(gen, b=1, s=128, h=2, p=64, n=32, dtype=fp32),
+        check_ssd_scan(gen, b=1, s=512, h=8, p=16, n=8, dtype=fp32),
+        check_ssd_scan(gen, b=2, s=333, h=4, p=128, n=128, dtype=fp32),
+    ]
+    for row in [*rows.values(), *others]:
+        emit({"phase": "checks", "path": "serve_hybrid", **row})
+    return rows
 
 
 # --------------------------------------------------------------------------------
@@ -461,6 +667,140 @@ def phase_serve(cfg) -> dict:
     return launches
 
 
+def phase_serve_hybrid(cfg) -> dict:
+    """zamba2-1.2b at full width and depth through the prefill step and the
+    engine, kernel path (K5, K1/K3, K4) against the naive path."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.lm import _unbind_layers
+    from repro_torch.models.ssm import mamba2_decode, mamba2_forward
+    from repro_torch.serve.step import make_prefill_step
+
+    counters = (ssd_scan, flash_attention, fused_ffn, flash_decode)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    model = LanguageModel(cfg, impl="kernel", fused_ffn=True)
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    naive = LanguageModel(cfg, impl="naive", fused_ffn=False)
+    naive.params = model.params                      # the same weights, not a copy
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(2))
+    n_shared = cfg.n_layers // cfg.attn_every
+    drive_steps = PROMPT_LEN + HYBRID_GEN_STEPS - 1  # decode-step calls in one generate
+    want_prefill = {"ssd_scan": cfg.n_layers, "flash_attention": n_shared,
+                    "fused_ffn": n_shared, "flash_decode": 0}
+    want_generate = {"ssd_scan": 0, "flash_attention": 0, "fused_ffn": n_shared * drive_steps,
+                     "flash_decode": n_shared * drive_steps}
+
+    def drive_hybrid(m):
+        prefill = make_prefill_step(m)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        logits = prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c_prefill = counts()
+        reset()
+        engine = ServingEngine(m, BATCH, MAX_LEN)
+        toks = engine.generate(prompts, HYBRID_GEN_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return {"prefill_logits": logits[:, 0].float(), "engine_logits": engine.prefill_logits,
+                "tokens": toks, "prefill_s": t1 - t0, "generate_s": t2 - t1,
+                "launches": {"prefill": c_prefill, "generate": counts()},
+                "prefill": prefill, "engine": engine}
+
+    torch.cuda.reset_peak_memory_stats()
+    ker = drive_hybrid(model)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    launches = ker["launches"]
+    if launches != {"prefill": want_prefill, "generate": want_generate}:
+        raise AssertionError(f"launch counts {launches}, expected prefill {want_prefill}, "
+                             f"generate {want_generate}")
+    ref = drive_hybrid(naive)
+    if any(v for step in ref["launches"].values() for v in step.values()):
+        raise AssertionError(f"the naive path launched a kernel: {ref['launches']}")
+    timed = drive_hybrid(model)                      # the first run paid for start-up
+
+    engine, last = timed["engine"], drive_steps
+    prefill_device_ms = device_ms(lambda: timed["prefill"]({"tokens": prompts}),
+                                  launches=1, replays=3)
+    decode_device_ms = device_ms(lambda: engine.decode(engine.cache, prompts[:, :1], last),
+                                 launches=1, replays=10)
+    profile = {"prefill": profile_step(lambda: timed["prefill"]({"tokens": prompts})),
+               "decode_step": profile_step(
+                   lambda: engine.decode(engine.cache, prompts[:, :1], last))}
+
+    toks = ker["tokens"]
+    if (toks.shape != (BATCH, HYBRID_GEN_STEPS) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size):
+        raise AssertionError(f"bad tokens: shape {tuple(toks.shape)}")
+    if not torch.equal(toks, timed["tokens"]):
+        raise AssertionError("two greedy runs of the kernel path gave different tokens")
+    errs = {
+        "engine_vs_prefill": logits_agree("hybrid: engine vs prefill step (kernel path)",
+                                          ker["engine_logits"], ker["prefill_logits"]),
+        "prefill_kernel_vs_naive": logits_agree("hybrid: prefill step, kernel vs naive",
+                                                ker["prefill_logits"], ref["prefill_logits"]),
+        "engine_kernel_vs_naive": logits_agree("hybrid: engine, kernel vs naive",
+                                               ker["engine_logits"], ref["engine_logits"]),
+    }
+
+    # layer 0 at full width: the SSM state after the prompt through the kernel
+    # scan against the state after as many decode steps. Each side's inputs
+    # carry its own bf16 rounding (in_proj over 512 tokens or over one), so
+    # the two are held as the bf16 K5 checks are: 2e-2 max|want| + 2e-2 |want|
+    p0 = _unbind_layers(model.params["layers"], cfg.n_layers)[0]
+    with torch.no_grad():
+        h0 = rmsnorm(p0["ln"], embed(model.params["emb"], prompts), cfg.norm_eps)
+        _, (conv_fwd, st_fwd) = mamba2_forward(p0["mixer"], cfg, h0, impl="kernel")
+        cache = model.init_cache(BATCH, 1)
+        conv, st = cache["conv"][0], cache["ssm"][0]
+        for t in range(PROMPT_LEN):
+            mamba2_decode(p0["mixer"], cfg, h0[:, t:t + 1], conv, st)
+    state_err = scaled_compare("layer 0 SSM state, prefill kernel vs decode", st_fwd, st,
+                               2e-2, 2e-2, True)
+    conv_equal = bool(torch.equal(conv_fwd, conv))
+
+    prefill_ms = timed["prefill_s"] * 1e3
+    decode_ms = timed["generate_s"] * 1e3 / drive_steps
+    row = {"phase": "serve_hybrid", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "shared_block_calls": n_shared, "dtype": "bfloat16", "impl": "kernel",
+           "fused_ffn": True, "batch": BATCH, "prompt_len": PROMPT_LEN,
+           "gen_steps": HYBRID_GEN_STEPS, "max_len": MAX_LEN, "launches": launches,
+           "logit_max_abs_diff": errs,
+           "tokens_equal_naive": bool(torch.equal(toks, ref["tokens"])),
+           "layer0_state_max_abs_err": state_err,
+           "layer0_state_max_abs": float(st.abs().max()),
+           "layer0_state_rel_err": rel_err(st_fwd, st),
+           "layer0_conv_state_equal": conv_equal,
+           "prefill_ms": prefill_ms, "prefill_device_ms": prefill_device_ms,
+           "prefill_device_idle_share": 1 - prefill_device_ms / prefill_ms,
+           "decode_ms_per_step": decode_ms, "decode_device_ms_per_step": decode_device_ms,
+           "decode_device_idle_share": 1 - decode_device_ms / decode_ms,
+           "generate_s": timed["generate_s"],
+           "generated_tokens_per_s": BATCH * HYBRID_GEN_STEPS / timed["generate_s"],
+           "decode_tokens_per_s": BATCH * drive_steps / timed["generate_s"],
+           "naive_prefill_ms": ref["prefill_s"] * 1e3,
+           "naive_decode_ms_per_step": ref["generate_s"] * 1e3 / drive_steps,
+           "first_run_prefill_ms": ker["prefill_s"] * 1e3,
+           "max_memory_allocated_bytes": peak_bytes, "profile": profile}
+    emit(row)
+    return {k: launches["prefill"][k] + launches["generate"][k] for k in want_prefill}
+
+
 # --------------------------------------------------------------------------------
 # the training path
 # --------------------------------------------------------------------------------
@@ -468,6 +808,9 @@ def phase_serve(cfg) -> dict:
 KERNEL_CLASSES = (("K1 flash_attention", ("attn_fwd",)),
                   ("K2a flash_attention_bwd_dq", ("attn_bwd_dq",)),
                   ("K2b flash_attention_bwd_dkv", ("attn_bwd_dkv",)),
+                  ("K3 flash_decode", ("decode_partial", "decode_combine")),
+                  ("K4 fused_ffn", ("ffn_mma", "ffn_fma", "ffn_combine")),
+                  ("K5 ssd_scan", ("ssd_chunk_scan",)),
                   ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "nvjet")))
 
 
@@ -665,10 +1008,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": Path(lib._name).name,
           "sources": [str(s.relative_to(ROOT)) for s in build.sources()]})
 
-    cfg = configs.get(ARCH)
+    cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     fa, fd = phase_checks(cfg)
     fa_train, bwd = phase_train_checks(cfg)
+    hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
+    hybrid_launches = phase_serve_hybrid(hybrid)
     train_launches = phase_train(cfg)
 
     def timing(row):
@@ -684,24 +1029,38 @@ def main() -> int:
     bwd_err = bwd["max_abs_err"]
     bwd_library = {"library_covers": "dq, dk and dv: the backward of "
                                      "F.scaled_dot_product_attention (fwd+bwd less fwd)"}
+    def by_path(name):
+        return {"serve": launches.get(name, 0), "serve_hybrid": hybrid_launches.get(name, 0),
+                "train": train_launches.get(name, 0)}
+
+    ffn_p, ffn_d, ssd = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ssd_prefill"]
     emit({"kernels": [
         summary("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96",
-                {"serve": launches["flash_attention"], "train": train_launches["flash_attention"]},
+                by_path("flash_attention"),
                 fa, fa["max_abs_err"], timing(fa), fa["library_ms"],
                 train_shape={"shape": fa_train["shape"], **timing(fa_train),
                              "library_ms": fa_train["library_ms"]}),
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                 "src/repro/kernels/flash_attention_bwd.py:132",
-                {"train": train_launches["flash_attention_bwd_dq"]}, bwd, bwd_err["dq"],
+                by_path("flash_attention_bwd_dq"), bwd, bwd_err["dq"],
                 timing(bwd["dq"]), bwd["library_ms"], **bwd_library),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "src/repro/kernels/flash_attention_bwd.py:153",
-                {"train": train_launches["flash_attention_bwd_dkv"]}, bwd,
+                by_path("flash_attention_bwd_dkv"), bwd,
                 max(bwd_err["dk"], bwd_err["dv"]), timing(bwd["dkv"]), bwd["library_ms"],
                 **bwd_library),
         summary("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:75",
-                {"serve": launches["flash_decode"]}, fd, fd["max_abs_err"], timing(fd),
-                fd["library_ms"])]})
+                by_path("flash_decode"), fd, fd["max_abs_err"], timing(fd),
+                fd["library_ms"]),
+        summary("fused_ffn", "fused_ffn.cu", "src/repro/kernels/fused_ffn.py:55",
+                by_path("fused_ffn"), ffn_p, ffn_p["max_abs_err"], timing(ffn_p),
+                ffn_p["library_ms"], library_covers=ffn_p["library_covers"],
+                alloc_extra_bytes=ffn_p["alloc_extra_bytes"],
+                decode_shape={"shape": ffn_d["shape"], "splits": ffn_d["splits"],
+                              **timing(ffn_d), "library_ms": ffn_d["library_ms"]}),
+        summary("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:89",
+                by_path("ssd_scan"), ssd, max(ssd["max_abs_err"], ssd["state_max_abs_err"]),
+                timing(ssd), None, library_none_because=ssd["library_none_because"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

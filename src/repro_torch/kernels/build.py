@@ -118,6 +118,15 @@ def load_library() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32, i32, i32, i32,
                                      f32, i32, ptr]
     lib.flash_decode_fwd.restype = i32
+    # (x, dt, A, b, c, y, state, B, S, H, P, N, is_bf16, stream)
+    lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                 i32, i32, i32, i32, i32, i32, ptr]
+    lib.ssd_scan_fwd.restype = i32
+    # (x, w_gate, w_up, w_down, y, partial or NULL, T, D, F, n_splits,
+    #  f_tiles_per_split, is_bf16, stream)
+    lib.fused_ffn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                  i32, i32, i32, i32, i32, i32, ptr]
+    lib.fused_ffn_fwd.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -145,7 +154,8 @@ def refuse_grad(what: str, *tensors) -> None:
 def check_cuda_tensors(**tensors) -> None:
     """What every kernel asks of its tensor arguments: on one CUDA device, one
     dtype out of bf16 and fp32, contiguous, 16-byte aligned (the kernels load
-    16 bytes at a time)."""
+    16 bytes at a time). A kernel whose arguments come in two dtypes checks
+    each group by its own call."""
     first = next(iter(tensors.values()))
     for name, x in tensors.items():
         if not x.is_cuda:

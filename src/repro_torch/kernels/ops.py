@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (check_inputs as _check_attention,
                                                  flash_attention,
                                                  flash_attention_plain)
@@ -12,6 +13,10 @@ from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
                                                      flash_attention_bwd_plain)
 from repro_torch.kernels.flash_decode import (check_inputs as _check_decode,
                                               flash_decode, flash_decode_plain)
+from repro_torch.kernels.fused_ffn import (check_inputs as _check_ffn, fused_ffn,
+                                           fused_ffn_plain)
+from repro_torch.kernels.ssd_scan import (check_inputs as _check_ssd, ssd_scan,
+                                          ssd_scan_plain)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -52,3 +57,26 @@ def flash_decode_op(q, k, v, kv_len: int, *, scale=None):
         return flash_decode(q, k, v, kv_len, scale=scale)
     _check_decode(q, k, v, kv_len)
     return flash_decode_plain(q, k, v, kv_len, scale=scale)
+
+
+def ssd_scan_op(x, dt, A, b_, c_):
+    """x (B,S,H,P), dt (B,S,H), A (H,), b_/c_ (B,S,N) -> (y (B,S,H,P),
+    final state (B,H,P,N) fp32), from a zero state. Forward only, on either
+    device: the reference has no backward for this kernel, so inputs that
+    require grad are refused; ``models.ssm.ssd_chunked`` is the
+    differentiable path."""
+    if x.is_cuda:
+        return ssd_scan(*(a.contiguous() for a in (x, dt, A, b_, c_)))
+    _check_ssd(x, dt, A, b_, c_)
+    build.refuse_grad("ssd_scan", x, dt, A, b_, c_)
+    return ssd_scan_plain(x, dt, A, b_, c_)
+
+
+def fused_ffn_op(x, w_gate, w_up, w_down):
+    """x (T,D), w_gate/w_up (D,F), w_down (F,D) -> (T,D). Forward only, as
+    in the reference: the wrapper refuses inputs that require grad."""
+    if x.is_cuda:
+        return fused_ffn(x.contiguous(), w_gate, w_up, w_down)
+    _check_ffn(x, w_gate, w_up, w_down)
+    build.refuse_grad("fused_ffn", x, w_gate, w_up, w_down)
+    return fused_ffn_plain(x, w_gate, w_up, w_down)

@@ -3,8 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch 4 --prompt-len 512 --gen 32 --max-len 1024
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --fused-ffn \
+        --batch 4 --prompt-len 512 --gen 16 --max-len 1024
+
 Runs on the card; ``--device cpu`` runs the same path with the kernels' plain
-versions (for the smoke configs, ``--arch tinyllama-1.1b-smoke``).
+versions (for the smoke configs, ``--arch tinyllama-1.1b-smoke`` or
+``--arch zamba2-1.2b-smoke``). ``--fused-ffn`` sends every SwiGLU MLP through
+the fused kernel (K4). The engine's cache is whatever the model's
+``init_cache`` returns: KV for attention layers, conv and SSM state for
+Mamba-2 layers.
 """
 from __future__ import annotations
 
@@ -22,8 +29,9 @@ from repro_torch.serve.step import make_decode_step
 
 
 class ServingEngine:
-    """Minimal batched engine over the decode step. The KV cache lives on
-    the model's device in the model's dtype and is updated in place."""
+    """Minimal batched engine over the decode step. The cache (KV, or conv and
+    SSM state) lives on the model's device, in the model's dtype except the
+    fp32 SSM state, and is updated in place."""
 
     def __init__(self, model: LanguageModel, batch: int, max_len: int,
                  sample: str = "greedy", temperature: float = 1.0, top_k: int = 0,
@@ -82,6 +90,8 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--impl", default="kernel", choices=IMPLS)
+    ap.add_argument("--fused-ffn", action="store_true",
+                    help="SwiGLU MLPs through the fused kernel (K4)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (an error without one); "
                          "'cpu' runs the kernels' plain versions")
@@ -89,7 +99,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)
-    model = LanguageModel(cfg, impl=args.impl)
+    model = LanguageModel(cfg, impl=args.impl, fused_ffn=args.fused_ffn)
     model.init(torch.Generator(device=device).manual_seed(0), device=device)
     engine = ServingEngine(model, args.batch, args.max_len)
 

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.base import Specs
 from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
 
@@ -19,10 +20,48 @@ def dense_block_specs(cfg: ModelConfig) -> Specs:
 
 
 def dense_block(params, cfg: ModelConfig, x, positions, impl="kernel",
-                causal=True):
+                causal=True, fused=False):
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     h = attn.gqa_attention(params["attn"], cfg, h, positions, causal=causal,
                            impl=impl)
     x = x + h
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + ffn(params["ffn"], h)
+    return x + ffn(params["ffn"], h, fused=fused)
+
+
+# ---- SSM (Mamba-2) -----------------------------------------------------------------
+
+def mamba_block_specs(cfg: ModelConfig) -> Specs:
+    return {"ln": rmsnorm_specs(cfg.d_model), "mixer": ssm_mod.ssm_specs(cfg)}
+
+
+def mamba_block(params, cfg: ModelConfig, x, impl="kernel"):
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    y, _ = ssm_mod.mamba2_forward(params["mixer"], cfg, h, impl=impl)
+    return x + y
+
+
+def mamba_block_decode(params, cfg: ModelConfig, x, conv_state, ssm_state):
+    """One token; ``conv_state`` and ``ssm_state`` are updated in place."""
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    y, cs, ss = ssm_mod.mamba2_decode(params["mixer"], cfg, h, conv_state, ssm_state)
+    return x + y, cs, ss
+
+
+# ---- Zamba-style shared attention block ----------------------------------------------
+
+def shared_attn_block_specs(cfg: ModelConfig) -> Specs:
+    return {
+        "ln1": rmsnorm_specs(cfg.d_model),
+        "attn": attn.gqa_specs(cfg),
+        "ln2": rmsnorm_specs(cfg.d_model),
+        "ffn": ffn_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def shared_attn_block(params, cfg: ModelConfig, x, positions, impl="kernel", fused=False):
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    h = attn.gqa_attention(params["attn"], cfg, h, positions, impl=impl)
+    x = x + h
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    return x + ffn(params["ffn"], h, fused=fused)

@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.base import P, Specs
 
 
@@ -61,7 +62,14 @@ def ffn_specs(d: int, d_ff: int) -> Specs:
     }
 
 
-def ffn(params, x):
+def ffn(params, x, fused: bool = False):
+    """SwiGLU. ``fused=True`` flattens (..., D) to (T, D) and runs K4
+    (``kernels.ops.fused_ffn_op``: forward only, silu(g)*u kept in fp32),
+    the port's consumer of the reference's ``MemoryPolicy.fused_ffn``."""
+    if fused:
+        y = kops.fused_ffn_op(x.reshape(-1, x.shape[-1]), params["w_gate"], params["w_up"],
+                              params["w_down"])
+        return y.reshape(x.shape)
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     # silu in fp32, cast back to the input dtype BEFORE the product with u

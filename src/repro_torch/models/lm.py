@@ -1,7 +1,7 @@
 """Model assembly: specs, init, forward (loop over the stacked layers), loss,
 and the prefill/decode paths with layer-stacked caches.
 
-    model = LanguageModel(cfg, impl="kernel", remat="none")
+    model = LanguageModel(cfg, impl="kernel", remat="none", fused_ffn=False)
     model.init(generator, dtype, device)      # or model.load_params(tree)
     h, aux = model.forward(batch)             # train/prefill hidden states
     loss = model.loss(batch)                  # differentiable scalar
@@ -10,8 +10,11 @@ and the prefill/decode paths with layer-stacked caches.
 
 The module holds its parameters as one nested ``ParameterDict`` with the
 reference's keys and stacked shapes (layer parameters carry a leading
-``layers`` axis), so a parameter tree converts 1:1. Only the ``dense``
-family is assembled so far.
+``layers`` axis), so a parameter tree converts 1:1. The ``dense`` (GQA),
+``ssm`` (Mamba-2) and ``hybrid`` (Mamba-2 with one shared attention + MLP
+block after every ``attn_every``-th layer, Zamba-2) families are assembled.
+``impl="kernel"`` runs attention through K1/K3 and the SSD scan through K5;
+``fused_ffn=True`` runs every SwiGLU MLP through K4 (forward only).
 """
 from __future__ import annotations
 
@@ -52,12 +55,11 @@ def _maybe_remat(fn, remat: str, *args):
 
 # where each family that is not assembled yet stands in ROADMAP.md, queue 1
 FAMILY_ROADMAP_ITEM = {
-    "vlm": "item 8 (K4 + vlm front end)",
+    "vlm": "item 8 (vlm front end)",
     "moe": "item 9 (MLA + MoE)",
-    "ssm": "item 10 (SSM + hybrid + K5)",
-    "hybrid": "item 10 (SSM + hybrid + K5)",
     "audio": "item 11 (encoder-decoder)",
 }
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _to_module(tree: dict) -> nn.ParameterDict:
@@ -81,29 +83,37 @@ def _unbind_layers(stacked, n: int) -> list[dict]:
 
 
 class LanguageModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, impl: str = "kernel", remat: str = "none"):
+    def __init__(self, cfg: ModelConfig, impl: str = "kernel", remat: str = "none",
+                 fused_ffn: bool = False):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not one of {IMPLS}")
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not one of {REMATS}")
-        if cfg.family != "dense" or cfg.use_mla:
+        if cfg.family not in FAMILIES or cfg.use_mla:
             item = FAMILY_ROADMAP_ITEM.get(cfg.family, "item 9 (MLA + MoE)")
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP.md queue 1, {item}")
         self.cfg = cfg
         self.impl = impl            # sdpa / decode implementation
         self.remat = remat          # per-block rematerialization policy
+        self.fused_ffn = fused_ffn  # SwiGLU through K4 (MemoryPolicy.fused_ffn)
         self.params = nn.ParameterDict()
 
     # ------------------------------------------------------------------ specs --
     def specs(self) -> Specs:
         cfg = self.cfg
-        return {
+        s: Specs = {
             "emb": embedding_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings),
             "ln_f": rmsnorm_specs(cfg.d_model),
-            "layers": stack_specs(blocks.dense_block_specs(cfg), cfg.n_layers),
         }
+        if cfg.family == "dense":
+            s["layers"] = stack_specs(blocks.dense_block_specs(cfg), cfg.n_layers)
+        else:
+            s["layers"] = stack_specs(blocks.mamba_block_specs(cfg), cfg.n_layers)
+        if cfg.family == "hybrid":
+            s["shared_attn"] = blocks.shared_attn_block_specs(cfg)
+        return s
 
     def init(self, generator: torch.Generator, dtype=torch.bfloat16, device=None):
         """Random parameters from ``generator`` on ``device`` (default: the
@@ -139,11 +149,22 @@ class LanguageModel(nn.Module):
             positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def body(x_, p_):
-            return blocks.dense_block(p_, cfg, x_, positions, impl=self.impl)
+        if cfg.family == "dense":
+            def body(x_, p_):
+                return blocks.dense_block(p_, cfg, x_, positions, impl=self.impl,
+                                          fused=self.fused_ffn)
+        else:
+            def body(x_, p_):
+                return blocks.mamba_block(p_, cfg, x_, impl=self.impl)
 
-        for p in _unbind_layers(params["layers"], cfg.n_layers):
+            def shared(x_, p_):
+                return blocks.shared_attn_block(p_, cfg, x_, positions, impl=self.impl,
+                                                fused=self.fused_ffn)
+
+        for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
             x = _maybe_remat(body, self.remat, x, p)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = _maybe_remat(shared, self.remat, x, params["shared_attn"])
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return h, aux
 
@@ -158,14 +179,34 @@ class LanguageModel(nn.Module):
 
     # ------------------------------------------------------------------ cache --
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
-        """Zeroed (L,B,S,KVH,D) caches; dtype and device default to the
-        parameters'."""
+        """Zeroed caches; dtype and device default to the parameters'. Dense:
+        (L,B,S,KVH,D) ``k``/``v``. SSM: ``conv`` (L,B,kw-1,C) and ``ssm``
+        (L,B,H,P,N), the SSM state always fp32. Hybrid: those, and
+        ``shared_k``/``shared_v`` (L // attn_every, B, S, KVH, D) for the
+        shared block's calls."""
         cfg = self.cfg
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if cfg.family == "dense":
+            shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+        cache = self._ssm_cache(batch, dtype, device)
+        if cfg.family == "hybrid":
+            shape = (cfg.n_layers // cfg.attn_every, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return cache
+
+    def _ssm_cache(self, batch: int, dtype, device):
+        cfg = self.cfg
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+        return {
+            "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_ch),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=torch.float32, device=device),
+        }
 
     # ------------------------------------------------------------ decode step --
     def decode_step(self, cache, tokens, pos: int):
@@ -174,11 +215,23 @@ class LanguageModel(nn.Module):
         cfg, params = self.cfg, self.params
         x = embed(params["emb"], tokens)
         for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
-            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            o, _, _ = gqa_decode(p["attn"], cfg, h, cache["k"][i], cache["v"][i], pos,
-                                 impl=self.impl)
-            x = x + o
-            h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-            x = x + ffn(p["ffn"], h)
+            if cfg.family == "dense":
+                x = self._attn_mlp_decode(p, x, cache["k"][i], cache["v"][i], pos)
+                continue
+            x, _, _ = blocks.mamba_block_decode(p, cfg, x, cache["conv"][i], cache["ssm"][i])
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                inv = i // cfg.attn_every
+                x = self._attn_mlp_decode(params["shared_attn"], x, cache["shared_k"][inv],
+                                          cache["shared_v"][inv], pos)
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return logits_for_tokens(params["emb"], h), cache
+
+    def _attn_mlp_decode(self, p, x, cache_k, cache_v, pos: int):
+        """One token through an attention + MLP block (a dense layer, or the
+        hybrid's shared block); the caches are written in place."""
+        cfg = self.cfg
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        o, _, _ = gqa_decode(p["attn"], cfg, h, cache_k, cache_v, pos, impl=self.impl)
+        x = x + o
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + ffn(p["ffn"], h, fused=self.fused_ffn)

@@ -136,7 +136,7 @@ def test_own_init_shapes_dtypes_and_std(dtype):
     assert torch.equal(w(model), w(again)) and not torch.equal(w(model), w(other))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-1.3b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internvl2-26b", "whisper-base"])
 def test_other_families_name_their_roadmap_item(arch):
     """Families that are not ported raise, and say where they are queued. The
     port has no config for them yet, so the reference's schema is copied."""

@@ -36,10 +36,13 @@ def test_every_module_is_checked():
                    "models/attention.py", "models/layers.py", "kernels/build.py",
                    "kernels/ops.py", "kernels/flash_attention.py",
                    "kernels/flash_attention_bwd.py", "kernels/flash_decode.py",
+                   "kernels/ssd_scan.py", "kernels/fused_ffn.py", "models/ssm.py",
+                   "models/blocks.py", "configs/mamba2_1_3b.py", "configs/zamba2_1_2b.py",
                    "serve/step.py", "launch/serve.py", "train/__init__.py", "train/optim.py",
                    "train/step.py", "data/pipeline.py", "launch/train.py"):
         assert needed in names
-    for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu"):
+    for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
+               "ssd_scan.cu", "fused_ffn.cu"):
         assert (PORT / "csrc" / cu).is_file()
 
 
@@ -89,6 +92,8 @@ def test_entry_points_raise_without_a_card():
         train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "zamba2-1.2b-smoke", "--fused-ffn"])
 
 
 def test_cpu_tensors_launch_no_kernel_and_wrappers_refuse_them():
@@ -107,6 +112,35 @@ def test_cpu_tensors_launch_no_kernel_and_wrappers_refuse_them():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_decode(q[:, 0], k, k, 5)
     assert (flash_attention.launches, flash_decode.launches) == before
+
+
+def test_ssm_and_ffn_kernels_launch_nothing_on_cpu_and_refuse_cpu_tensors():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    before = (ssd_scan.launches, fused_ffn.launches)
+    x = torch.randn(1, 70, 2, 16)
+    dt = torch.rand(1, 70, 2)
+    a = -torch.rand(2)
+    bc = torch.randn(1, 70, 8)
+    w = torch.randn(16, 24)
+    ops.ssd_scan_op(x, dt, a, bc, bc)
+    ops.fused_ffn_op(x[0, :, 0], w, w, w.T.contiguous())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_scan(x, dt, a, bc, bc)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_ffn(x[0, :, 0].contiguous(), w, w, w.T.contiguous())
+    # a whole hybrid forward and decode step on the CPU: still no launch
+    import repro_torch.configs as configs
+    from repro_torch.models import LanguageModel
+
+    model = LanguageModel(configs.get("zamba2-1.2b-smoke"), impl="kernel", fused_ffn=True)
+    model.init(torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        model.forward({"tokens": torch.zeros((1, 300), dtype=torch.int64)})
+        model.decode_step(model.init_cache(1, 4), torch.zeros((1, 1), dtype=torch.int64), 0)
+    assert (ssd_scan.launches, fused_ffn.launches) == before
 
 
 def test_backward_on_cpu_launches_no_kernel_and_its_wrappers_refuse_cpu_tensors():
@@ -135,7 +169,7 @@ def test_backward_on_cpu_launches_no_kernel_and_its_wrappers_refuse_cpu_tensors(
 
 
 def test_forward_wrappers_refuse_inputs_whose_gradient_they_would_drop():
-    """K1 and K3 write through raw pointers: their outputs carry no grad_fn.
+    """K1, K3, K4 and K5 write through raw pointers: their outputs carry no grad_fn.
     With grad mode on and an input that requires grad they raise, whatever
     the device, before anything else; only the autograd Function calls K1
     there (under its own no-grad forward)."""
@@ -148,6 +182,14 @@ def test_forward_wrappers_refuse_inputs_whose_gradient_they_would_drop():
         flash_attention(q, k, k, causal=True)
     with pytest.raises(RuntimeError, match="requires grad"):
         flash_decode(q[:, 0], k, k, 5)
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    w = torch.randn(32, 48, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_ffn(q[0, :, 0].detach(), w, w, w.T)
+    dt = torch.rand(1, 8, 4)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssd_scan(q, dt, -torch.rand(4), k[:, :, 0], k[:, :, 0])
     with torch.no_grad():               # no gradient to drop: the device check speaks
         with pytest.raises(ValueError, match="CUDA tensors"):
             flash_attention(q, k, k, causal=True)
@@ -162,7 +204,8 @@ def test_kernel_build_finds_its_sources_and_raises_without_a_compiler(monkeypatc
 
     names = [p.name for p in build.sources()]
     assert names == sorted(names)
-    assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu"} <= set(names)
+    assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu", "ssd_scan.cu",
+            "fused_ffn.cu"} <= set(names)
     # the library's name follows the sources' content and the flags
     digest = build._digest(build.sources())
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-DX",))
