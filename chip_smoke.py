@@ -5,7 +5,8 @@
 
 Phases, one JSON object a line:
   env      the card (name, power limit), torch / CUDA / nvcc versions
-  build    builds the CUDA kernels from src/repro_torch/csrc and loads them
+  build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
+           with each kernel's registers and spill bytes as ptxas reports them
   checks   every kernel against its plain PyTorch version on the card, over
            the serving path's shapes and the awkward ones (ragged lengths,
            D=128, KVH=H, non-causal, fp32), with device times (CUDA-graph
@@ -19,18 +20,24 @@ Phases, one JSON object a line:
            every layer of every step), with the launch counts the path must
            show, and the same two steps through impl="naive" as the reference
   checks   (hybrid path) K4 fused_ffn at zamba2-1.2b's prefill (T=2048) and
-           decode (T=4) shapes, tinyllama's F=5632, T=333 and fp32; K5
-           ssd_scan at the prefill shape (N=64; again with Mamba-2's small dt,
-           bf16 and fp32, so the state carries across chunks), mamba2-1.3b's
-           N=128, S=333, S=1 and fp32 shapes, y and final state; bf16 outputs
-           held elementwise and by relative norm; each launched twice and
-           required bit-identical; K4's allocation at the prefill shape held
-           below one (T x F) bf16 tensor
+           decode (T=4) shapes, the tiled route's threshold T=256, T=1025
+           (two row chunks of h, the second ragged), T=8192 (eight chunks),
+           F=1000, tinyllama's F=5632, T=333 and fp32, every bf16 shape on
+           both routes (tiled and rowtile; the route ffn_plan picks is the
+           row's own, both timed at T=2048 and T=256), with the route and
+           h's chunk rows; K5 ssd_scan at the prefill shape (N=64; again with
+           Mamba-2's small dt, bf16 and fp32, so the state carries across
+           chunks), mamba2-1.3b's N=128, S=333, S=1 and fp32 shapes, y and
+           final state; bf16 outputs held elementwise and by relative norm;
+           each launched twice and required bit-identical; K4's allocation
+           at T=2048 and T=8192 held below one (T x F) bf16 tensor and to
+           16 MiB + 1 MiB
   serve_hybrid  zamba2-1.2b at full width and depth (38 Mamba-2 blocks, 6
            calls of the shared attention + MLP block), bf16, seeded random
            weights, impl="kernel" with fused_ffn: the prefill step on 4 x 512
-           prompts (K5 38, K1 6, K4 6 launches) and `generate` for 16 greedy
-           steps (K3 and K4 6 x 527 each), against impl="naive" without
+           prompts (K5 38, K1 6, K4 6 launches, all on the tiled route) and
+           `generate` for 16 greedy steps (K3 and K4 6 x 527 each, K4 on the
+           row-tile route), against impl="naive" without
            fused_ffn on the same weights; layer 0's SSM state after 512
            tokens through the kernel scan against 512 decode steps; times
            (host clock, CUDA-graph replay) and a torch.profiler breakdown of
@@ -43,14 +50,17 @@ Phases, one JSON object a line:
            clock, and one step replayed as a CUDA graph), tokens/s, MFU and
            peak memory
   kernels  the summary line: per kernel its launches on each path, error,
-           time, plain time, bound and the library call's time
+           time, plain time, bound and the library call's time; K4 also its
+           launches by route and both routes' times at T=2048 and T=256
 then the card's name and power limit, then {"ok": true, "device": ...}.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import re
@@ -201,6 +211,55 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: fl
     w = want.float()
     return {"max_abs_err": err, "rel_norm_err": rel, "want_max_abs": float(w.abs().max()),
             "want_rms": float(w.square().mean().sqrt())}
+
+
+def kernel_name(mangled: str) -> str:
+    """The unqualified name in an Itanium-mangled function name:
+    ``_ZN<len><namespace><len><name>...`` or ``_Z<len><name>...``."""
+    m = re.match(r"_Z(N?)", mangled)
+    if not m:
+        return mangled
+    pos, names = m.end(), []
+    while n := re.match(r"\d+", mangled[pos:]):
+        pos += n.end()
+        names.append(mangled[pos:pos + int(n.group())])
+        pos += int(n.group())
+        if not m.group(1):
+            break
+    return names[-1] if names else mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel from ``nvcc -Xptxas -v``'s
+    output, by the kernel's name (a template's n-th instance gets "#n")."""
+    report, entry, name = {}, None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = m.group(1)
+            name = base = kernel_name(entry)
+            n = 1
+            while name in report:
+                n += 1
+                name = f"{base}#{n}"
+            report[name] = {}
+        elif m := re.search(r"Function properties for (\w+)", line):
+            if m.group(1) != entry:
+                name = None          # a callee's properties, not the entry's
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def build_with_report() -> dict:
+    """Builds the kernels with ``-Xptxas -v`` and returns ``ptxas_report``."""
+    from repro_torch.kernels import build
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        build.build(verbose=True)
+    return ptxas_report(out.getvalue())
 
 
 def randn(gen, shape, dtype):
@@ -405,44 +464,62 @@ def phase_checks(cfg) -> tuple[dict, dict]:
     return fa_path, fd_path
 
 
-def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False) -> dict:
+def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False, both_routes=False) -> dict:
     """K4 against its plain version, twice on the same inputs (bit-identical),
-    with model-like scales (x of unit RMS, weights of std 1/sqrt(fan-in))."""
-    from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_plain, split_plan
+    with model-like scales (x of unit RMS, weights of std 1/sqrt(fan-in)), on
+    the route ``ffn_plan`` picks and, with ``both_routes``, on the other one
+    (``other_route``), timed too where ``timed``."""
+    from repro_torch.kernels.fused_ffn import (H_CHUNK_BYTES, ROUTES, chunk_spans, ffn_plan,
+                                               fused_ffn, fused_ffn_plain, split_plan)
     from repro_torch.models.layers import ffn
 
     x = randn(gen, (t, d), dtype)
     wg = (randn(gen, (d, f), torch.float32) * d ** -0.5).to(dtype)
     wu = (randn(gen, (d, f), torch.float32) * d ** -0.5).to(dtype)
     wd = (randn(gen, (f, d), torch.float32) * f ** -0.5).to(dtype)
-    got = fused_ffn(x, wg, wu, wd)
-    again = fused_ffn(x, wg, wu, wd)
-    torch.cuda.synchronize()
+    want = fused_ffn_plain(x, wg, wu, wd)
     atol, rtol = FFN_TOL[dtype]
     rel_norm = BF16_REL_NORM if dtype == torch.bfloat16 else None
+    route, chunk_rows = ffn_plan(t, f, dtype)
+
+    def on(r) -> dict:
+        got = fused_ffn(x, wg, wu, wd, route=r)
+        again = fused_ffn(x, wg, wu, wd, route=r)
+        torch.cuda.synchronize()
+        res = {**held(f"fused_ffn ({r})", got, want, atol, rtol, rel_norm),
+               "bit_identical": bool(torch.equal(got, again))}
+        if not res["bit_identical"]:
+            raise AssertionError(f"fused_ffn ({r}): two launches on the same inputs differ")
+        if timed:
+            res.update(kernel_ms=device_ms(lambda: fused_ffn(x, wg, wu, wd, route=r)),
+                       call_ms=call_ms(lambda: fused_ffn(x, wg, wu, wd, route=r)))
+        return res
+
     row = {"kernel": "fused_ffn",
            "shape": {"T": t, "D": d, "F": f, "dtype": str(dtype).split(".")[-1]},
-           "splits": split_plan(t, f)[0],
-           "tol": {"atol": atol, "rtol": rtol, "rel_norm": rel_norm},
-           **held("fused_ffn", got, fused_ffn_plain(x, wg, wu, wd), atol, rtol, rel_norm),
-           "bit_identical": bool(torch.equal(got, again))}
-    if not row["bit_identical"]:
-        raise AssertionError("fused_ffn: two launches on the same inputs differ")
-    del again
+           "route": route, "chunk_rows": chunk_rows,
+           "chunks": len(chunk_spans(t, chunk_rows)) if chunk_rows else None,
+           "splits": split_plan(t, f)[0] if route == "rowtile" else None,
+           "tol": {"atol": atol, "rtol": rtol, "rel_norm": rel_norm}, **on(route)}
+    if both_routes:
+        other = next(r for r in ROUTES if r != route)
+        row["other_route"] = {"route": other, **on(other)}
     if alloc:
-        # what one call allocates besides its output: no (T x F) tensor may
-        # reach device memory
+        # what one call allocates besides its output: no (T x F) tensor, and
+        # no more than one chunk of h (16 MiB) and 1 MiB of slack
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         out = fused_ffn(x, wg, wu, wd)
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
-        limit = t * f * 2
-        row.update(alloc_extra_bytes=extra, alloc_limit_bytes=limit)
-        if extra >= limit:
-            raise AssertionError(f"fused_ffn allocated {extra} bytes besides its output, "
-                                 f"not fewer than one (T x F) bf16 tensor ({limit})")
+        limit, chunk_limit = t * f * 2, H_CHUNK_BYTES + (1 << 20)
+        row.update(alloc_extra_bytes=extra, alloc_limit_bytes=limit,
+                   alloc_chunk_limit_bytes=chunk_limit)
+        if extra >= limit or extra > chunk_limit:
+            raise AssertionError(f"fused_ffn allocated {extra} bytes besides its output: not "
+                                 f"fewer than one (T x F) bf16 tensor ({limit}), or more "
+                                 f"than {chunk_limit}")
         del out
     if timed:
         nbytes = x.element_size() * (2 * x.numel() + wg.numel() + wu.numel() + wd.numel())
@@ -450,13 +527,16 @@ def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False) -> dict:
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         params = {"w_gate": wg, "w_up": wu, "w_down": wd}
         row.update(
-            kernel_ms=device_ms(lambda: fused_ffn(x, wg, wu, wd)),
-            call_ms=call_ms(lambda: fused_ffn(x, wg, wu, wd)),
             plain_ms=device_ms(lambda: fused_ffn_plain(x, wg, wu, wd), launches=3),
             library_ms=device_ms(lambda: ffn(params, x)),
             library_covers="three cuBLAS products + silu*mul (eager layers.ffn), several calls",
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
     return row
+
+
+def routes_ms(row) -> dict:
+    """Device ms of both K4 routes from a row checked with ``both_routes``."""
+    return {row["route"]: row["kernel_ms"], row["other_route"]["route"]: row["other_route"]["kernel_ms"]}
 
 
 def ssd_flops(b, s, h, p, n) -> int:
@@ -522,20 +602,29 @@ def check_ssd_scan(gen, *, b, s, h, p, n, dtype, timed=False, dt_range=None) -> 
 
 def phase_hybrid_checks(cfg, ssm_cfg) -> dict:
     """K4 and K5 over the hybrid path's shapes and the awkward ones; returns
-    the timed rows at the path's shapes."""
+    the timed rows at the path's shapes (and K4's at its route threshold)."""
+    from repro_torch.kernels.fused_ffn import TILED_MIN_T
+
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, fp32 = torch.bfloat16, torch.float32
     d, f, tokens = cfg.d_model, cfg.d_ff, BATCH * PROMPT_LEN
     rows = {
-        "ffn_prefill": check_fused_ffn(gen, t=tokens, d=d, f=f, dtype=bf16, timed=True, alloc=True),
-        "ffn_decode": check_fused_ffn(gen, t=BATCH, d=d, f=f, dtype=bf16, timed=True),
+        "ffn_prefill": check_fused_ffn(gen, t=tokens, d=d, f=f, dtype=bf16, timed=True, alloc=True,
+                                       both_routes=True),
+        "ffn_decode": check_fused_ffn(gen, t=BATCH, d=d, f=f, dtype=bf16, timed=True,
+                                      both_routes=True),
+        "ffn_threshold": check_fused_ffn(gen, t=TILED_MIN_T, d=d, f=f, dtype=bf16, timed=True,
+                                         both_routes=True),
         "ssd_prefill": check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads,
                                       p=cfg.ssm_head_dim, n=cfg.ssm_state, dtype=bf16, timed=True),
     }
     others = [
-        check_fused_ffn(gen, t=tokens, d=2048, f=5632, dtype=bf16),    # tinyllama's F
-        check_fused_ffn(gen, t=333, d=d, f=f, dtype=bf16),              # no tile multiple
-        check_fused_ffn(gen, t=256, d=128, f=512, dtype=bf16),
+        check_fused_ffn(gen, t=1025, d=d, f=f, dtype=bf16, both_routes=True),   # 2 chunks, ragged
+        check_fused_ffn(gen, t=8192, d=d, f=f, dtype=bf16, alloc=True, both_routes=True),  # 8
+        check_fused_ffn(gen, t=tokens, d=d, f=1000, dtype=bf16, both_routes=True),   # ragged F
+        check_fused_ffn(gen, t=tokens, d=2048, f=5632, dtype=bf16, both_routes=True),  # tinyllama
+        check_fused_ffn(gen, t=333, d=d, f=f, dtype=bf16, both_routes=True),    # no tile multiple
+        check_fused_ffn(gen, t=256, d=128, f=512, dtype=bf16, both_routes=True),
         check_fused_ffn(gen, t=256, d=128, f=512, dtype=fp32),          # tests/test_kernels.py:57
         check_fused_ffn(gen, t=512, d=256, f=1024, dtype=fp32),
         check_fused_ffn(gen, t=128, d=64, f=256, dtype=fp32),
@@ -686,6 +775,7 @@ def phase_serve_hybrid(cfg) -> dict:
     def reset():
         for c in counters:
             c.launches = 0
+        fused_ffn.launches_by_route = dict.fromkeys(fused_ffn.launches_by_route, 0)
 
     def counts():
         return {c.__name__: c.launches for c in counters}
@@ -702,6 +792,9 @@ def phase_serve_hybrid(cfg) -> dict:
                     "fused_ffn": n_shared, "flash_decode": 0}
     want_generate = {"ssd_scan": 0, "flash_attention": 0, "fused_ffn": n_shared * drive_steps,
                      "flash_decode": n_shared * drive_steps}
+    # K4's route: the prefill step's T = 2048 takes the tiled route, decode's T = 4 the row tiles
+    want_by_route = {"prefill": {"tiled": n_shared, "rowtile": 0},
+                     "generate": {"tiled": 0, "rowtile": n_shared * drive_steps}}
 
     def drive_hybrid(m):
         prefill = make_prefill_step(m)
@@ -711,7 +804,7 @@ def phase_serve_hybrid(cfg) -> dict:
         logits = prefill({"tokens": prompts})
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        c_prefill = counts()
+        c_prefill, r_prefill = counts(), dict(fused_ffn.launches_by_route)
         reset()
         engine = ServingEngine(m, BATCH, MAX_LEN)
         toks = engine.generate(prompts, HYBRID_GEN_STEPS)
@@ -720,6 +813,7 @@ def phase_serve_hybrid(cfg) -> dict:
         return {"prefill_logits": logits[:, 0].float(), "engine_logits": engine.prefill_logits,
                 "tokens": toks, "prefill_s": t1 - t0, "generate_s": t2 - t1,
                 "launches": {"prefill": c_prefill, "generate": counts()},
+                "by_route": {"prefill": r_prefill, "generate": dict(fused_ffn.launches_by_route)},
                 "prefill": prefill, "engine": engine}
 
     torch.cuda.reset_peak_memory_stats()
@@ -729,6 +823,9 @@ def phase_serve_hybrid(cfg) -> dict:
     if launches != {"prefill": want_prefill, "generate": want_generate}:
         raise AssertionError(f"launch counts {launches}, expected prefill {want_prefill}, "
                              f"generate {want_generate}")
+    if ker["by_route"] != want_by_route:
+        raise AssertionError(f"fused_ffn launches by route {ker['by_route']}, expected "
+                             f"{want_by_route}")
     ref = drive_hybrid(naive)
     if any(v for step in ref["launches"].values() for v in step.values()):
         raise AssertionError(f"the naive path launched a kernel: {ref['launches']}")
@@ -780,6 +877,7 @@ def phase_serve_hybrid(cfg) -> dict:
            "shared_block_calls": n_shared, "dtype": "bfloat16", "impl": "kernel",
            "fused_ffn": True, "batch": BATCH, "prompt_len": PROMPT_LEN,
            "gen_steps": HYBRID_GEN_STEPS, "max_len": MAX_LEN, "launches": launches,
+           "fused_ffn_launches_by_route": ker["by_route"],
            "logit_max_abs_diff": errs,
            "tokens_equal_naive": bool(torch.equal(toks, ref["tokens"])),
            "layer0_state_max_abs_err": state_err,
@@ -798,7 +896,8 @@ def phase_serve_hybrid(cfg) -> dict:
            "first_run_prefill_ms": ker["prefill_s"] * 1e3,
            "max_memory_allocated_bytes": peak_bytes, "profile": profile}
     emit(row)
-    return {k: launches["prefill"][k] + launches["generate"][k] for k in want_prefill}
+    by_route = {r: sum(step[r] for step in ker["by_route"].values()) for r in want_by_route["prefill"]}
+    return {k: launches["prefill"][k] + launches["generate"][k] for k in want_prefill}, by_route
 
 
 # --------------------------------------------------------------------------------
@@ -809,7 +908,8 @@ KERNEL_CLASSES = (("K1 flash_attention", ("attn_fwd",)),
                   ("K2a flash_attention_bwd_dq", ("attn_bwd_dq",)),
                   ("K2b flash_attention_bwd_dkv", ("attn_bwd_dkv",)),
                   ("K3 flash_decode", ("decode_partial", "decode_combine")),
-                  ("K4 fused_ffn", ("ffn_mma", "ffn_fma", "ffn_combine")),
+                  ("K4 fused_ffn", ("ffn_mma", "ffn_fma", "ffn_combine", "ffn_gate_up_mma",
+                                    "ffn_down_mma")),
                   ("K5 ssd_scan", ("ssd_chunk_scan",)),
                   ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "nvjet")))
 
@@ -1004,16 +1104,17 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
+    ptxas = build_with_report()
     lib = build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": Path(lib._name).name,
-          "sources": [str(s.relative_to(ROOT)) for s in build.sources()]})
+          "sources": [str(s.relative_to(ROOT)) for s in build.sources()], "ptxas": ptxas})
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     fa, fd = phase_checks(cfg)
     fa_train, bwd = phase_train_checks(cfg)
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
-    hybrid_launches = phase_serve_hybrid(hybrid)
+    hybrid_launches, ffn_by_route = phase_serve_hybrid(hybrid)
     train_launches = phase_train(cfg)
 
     def timing(row):
@@ -1033,7 +1134,8 @@ def main() -> int:
         return {"serve": launches.get(name, 0), "serve_hybrid": hybrid_launches.get(name, 0),
                 "train": train_launches.get(name, 0)}
 
-    ffn_p, ffn_d, ssd = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ssd_prefill"]
+    ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
+    ssd = hyb["ssd_prefill"]
     emit({"kernels": [
         summary("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96",
                 by_path("flash_attention"),
@@ -1055,9 +1157,13 @@ def main() -> int:
         summary("fused_ffn", "fused_ffn.cu", "src/repro/kernels/fused_ffn.py:55",
                 by_path("fused_ffn"), ffn_p, ffn_p["max_abs_err"], timing(ffn_p),
                 ffn_p["library_ms"], library_covers=ffn_p["library_covers"],
+                kernel_route=ffn_p["route"], chunk_rows=ffn_p["chunk_rows"],
+                launches_by_route=ffn_by_route,
+                routes_ms={"T=2048": routes_ms(ffn_p), "T=256": routes_ms(ffn_256)},
                 alloc_extra_bytes=ffn_p["alloc_extra_bytes"],
-                decode_shape={"shape": ffn_d["shape"], "splits": ffn_d["splits"],
-                              **timing(ffn_d), "library_ms": ffn_d["library_ms"]}),
+                decode_shape={"shape": ffn_d["shape"], "route": ffn_d["route"],
+                              "splits": ffn_d["splits"], **timing(ffn_d),
+                              "library_ms": ffn_d["library_ms"]}),
         summary("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:89",
                 by_path("ssd_scan"), ssd, max(ssd["max_abs_err"], ssd["state_max_abs_err"]),
                 timing(ssd), None, library_none_because=ssd["library_none_because"])]})

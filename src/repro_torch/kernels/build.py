@@ -127,6 +127,10 @@ def load_library() -> ctypes.CDLL:
     lib.fused_ffn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                   i32, i32, i32, i32, i32, i32, ptr]
     lib.fused_ffn_fwd.restype = i32
+    # (x, w_gate, w_up, w_down, y, h_scratch, T, D, F, chunk_rows, stream)
+    lib.fused_ffn_tiled_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                        i32, i32, i32, i32, ptr]
+    lib.fused_ffn_tiled_fwd.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
