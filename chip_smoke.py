@@ -7,13 +7,20 @@ Phases, one JSON object a line:
   env      the card (name, power limit), torch / CUDA / nvcc versions
   build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
            with each kernel's registers and spill bytes as ptxas reports them
+           (template instances named by their arguments, e.g.
+           attn_bwd_dkv_mma<128,32>)
+  occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
+           training shape, with its plan
   checks   every kernel against its plain PyTorch version on the card, over
            the serving path's shapes and the awkward ones (ragged lengths,
            D=128, KVH=H, non-causal, fp32), with device times (CUDA-graph
            replay), eager call times and roofline bounds
            and, for the training path, K1 and the backward kernels K2a (dq)
-           and K2b (dk, dv) at the training shape and the awkward ones, each
-           K2 launch repeated and required to agree bit for bit
+           and K2b (dk, dv) at the training shape and the awkward ones (also
+           G=6 and G=16, K2b's clusters of 6 and of 8 blocks walking 2 heads),
+           each K2 launch repeated and required to agree bit for bit, each
+           row with its plan (tiles, cluster size); K2 also timed at S=4096
+           (B=1) and at D=128 (yi-6b's heads, B=2, S=1024)
   serve    tinyllama-1.1b at full width and depth, bf16, seeded random
            weights: one 512-token prefill through `forward` (flash_attention)
            and `ServingEngine.generate` for 32 greedy steps (flash_decode at
@@ -88,6 +95,7 @@ BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 
 ARCH, BATCH, PROMPT_LEN, GEN_STEPS, MAX_LEN = "tinyllama-1.1b", 4, 512, 32, 1024
+WIDE_ARCH = "yi-6b"        # K2 timed at its heads: H=32, KVH=4, D=128
 HYBRID_ARCH, HYBRID_GEN_STEPS = "zamba2-1.2b", 16
 # (atol, rtol): |got - want| <= atol + rtol |want| in every element.
 # K5 computes in fp32 from the inputs' values, as its plain version does: on
@@ -215,7 +223,8 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: fl
 
 def kernel_name(mangled: str) -> str:
     """The unqualified name in an Itanium-mangled function name:
-    ``_ZN<len><namespace><len><name>...`` or ``_Z<len><name>...``."""
+    ``_ZN<len><namespace><len><name>...`` or ``_Z<len><name>...``, with a
+    template's integer arguments (``I Li64E ... E``) as ``name<64,...>``."""
     m = re.match(r"_Z(N?)", mangled)
     if not m:
         return mangled
@@ -226,12 +235,19 @@ def kernel_name(mangled: str) -> str:
         pos += int(n.group())
         if not m.group(1):
             break
-    return names[-1] if names else mangled
+    if not names:
+        return mangled
+    args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", mangled[pos:])
+    if not args:
+        return names[-1]
+    return names[-1] + "<" + ",".join(re.findall(r"L[a-z]+(-?\d+)E", args.group(1))) + ">"
 
 
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes of each kernel from ``nvcc -Xptxas -v``'s
-    output, by the kernel's name (a template's n-th instance gets "#n")."""
+    output, by ``kernel_name`` (a template instance by its integer arguments,
+    ``attn_bwd_dkv_mma<128,32>``; where two entries share a name, the n-th
+    gets "#n")."""
     report, entry, name = {}, None, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -338,10 +354,10 @@ def check_flash_decode(gen, *, b, h, kvh, d, s, kv_len, dtype, timed=False) -> d
 
 def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=False) -> dict:
     """K2a and K2b against their plain versions, and twice on the same inputs
-    (the two launches must agree bit for bit)."""
+    (the two launches must agree bit for bit), with the plan they ran."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention_bwd import (attention_delta,
+    from repro_torch.kernels.flash_attention_bwd import (attention_delta, bwd_plan,
                                                          flash_attention_bwd_dkv,
                                                          flash_attention_bwd_dkv_plain,
                                                          flash_attention_bwd_dq,
@@ -363,6 +379,7 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
     row = {"kernel": "flash_attention_bwd",
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "D": d,
                      "dtype": str(dtype).split(".")[-1], "causal": causal},
+           "plan": bwd_plan(b, sq, skv, h, kvh, d, dtype, causal).summary(),
            "tol": BWD_TOL[dtype],
            "max_abs_err": {n: scaled_compare(f"flash_attention_bwd {n}", x, y, BWD_TOL[dtype],
                                              BWD_TOL[dtype], dtype != torch.float32)
@@ -397,9 +414,28 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
     return row
 
 
-def phase_train_checks(cfg) -> tuple[dict, dict]:
+def phase_occupancy(cfg) -> dict:
+    """cudaOccupancyMaxActiveClusters of K2b's launch at the training shape,
+    beside its plan: how many of its clusters the card holds at once."""
+    from repro_torch.kernels.flash_attention_bwd import bwd_plan, dkv_max_active_clusters
+
+    shape = dict(b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, h=cfg.n_heads, kvh=cfg.n_kv_heads,
+                 d=cfg.head_dim)
+    plan = bwd_plan(**shape, dtype=torch.bfloat16, causal=True)
+    clusters = dkv_max_active_clusters(**shape)
+    if clusters < 1:
+        raise AssertionError(f"K2b: not one cluster of {plan.cluster} blocks fits the card")
+    return {"phase": "occupancy", "kernel": "flash_attention_bwd_dkv", "shape": shape,
+            "plan": plan.summary(), "max_active_clusters": clusters,
+            "max_active_blocks": clusters * plan.cluster,
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+
+
+def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict]:
     """K2a/K2b over the training path's shape and the awkward ones, and K1 at
-    the training path's shape; returns the two timed rows."""
+    the training path's shape; returns the two timed rows at the training
+    shape and K2's timed rows at S=4096 (tinyllama's heads, B=1) and at
+    D=128 (``wide_cfg``'s heads, B=2, S=1024)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -407,7 +443,15 @@ def phase_train_checks(cfg) -> tuple[dict, dict]:
                                dtype=bf16, causal=True, timed=True)
     bwd = check_flash_attention_bwd(gen, b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, h=h, kvh=kvh,
                                     d=d, dtype=bf16, causal=True, timed=True)
-    rows = [fa, bwd]
+    more = {
+        "S=4096": check_flash_attention_bwd(gen, b=1, sq=4096, skv=4096, h=h, kvh=kvh, d=d,
+                                            dtype=bf16, causal=True, timed=True),
+        "D=128": check_flash_attention_bwd(gen, b=2, sq=TRAIN_SEQ, skv=TRAIN_SEQ,
+                                           h=wide_cfg.n_heads, kvh=wide_cfg.n_kv_heads,
+                                           d=wide_cfg.head_dim, dtype=bf16, causal=True,
+                                           timed=True),
+    }
+    rows = [fa, bwd, *more.values()]
     for kw in (
         dict(b=2, sq=333, skv=333, h=h, kvh=kvh, d=d, dtype=bf16, causal=True),   # no tile multiple
         dict(b=2, sq=512, skv=512, h=8, kvh=2, d=32, dtype=bf16, causal=True),
@@ -418,11 +462,13 @@ def phase_train_checks(cfg) -> tuple[dict, dict]:
         dict(b=2, sq=333, skv=333, h=8, kvh=2, d=d, dtype=fp32, causal=True),
         dict(b=1, sq=130, skv=250, h=4, kvh=1, d=128, dtype=fp32, causal=False),
         dict(b=1, sq=100, skv=100, h=4, kvh=4, d=32, dtype=fp32, causal=True),
+        dict(b=2, sq=333, skv=333, h=12, kvh=2, d=d, dtype=bf16, causal=True),    # G=6: c=6
+        dict(b=1, sq=256, skv=256, h=16, kvh=1, d=d, dtype=bf16, causal=True),    # G=16: c=8, 2 heads a block
     ):
         rows.append(check_flash_attention_bwd(gen, **kw))
     for row in rows:
         emit({"phase": "checks", "path": "train", **row})
-    return fa, bwd
+    return fa, bwd, more
 
 
 def phase_checks(cfg) -> tuple[dict, dict]:
@@ -1110,8 +1156,9 @@ def main() -> int:
           "sources": [str(s.relative_to(ROOT)) for s in build.sources()], "ptxas": ptxas})
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
+    emit(phase_occupancy(cfg))
     fa, fd = phase_checks(cfg)
-    fa_train, bwd = phase_train_checks(cfg)
+    fa_train, bwd, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route = phase_serve_hybrid(hybrid)
@@ -1120,6 +1167,10 @@ def main() -> int:
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+
+    def bwd_shapes(part):
+        return {key: {"shape": row["shape"], "plan": row["plan"], **timing(row[part]),
+                      "library_ms": row["library_ms"]} for key, row in bwd_more.items()}
 
     def summary(name, source, replaces, launches_by_path, row, err, times, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -1145,12 +1196,13 @@ def main() -> int:
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                 "src/repro/kernels/flash_attention_bwd.py:132",
                 by_path("flash_attention_bwd_dq"), bwd, bwd_err["dq"],
-                timing(bwd["dq"]), bwd["library_ms"], **bwd_library),
+                timing(bwd["dq"]), bwd["library_ms"], **bwd_library, plan=bwd["plan"],
+                more_shapes=bwd_shapes("dq")),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "src/repro/kernels/flash_attention_bwd.py:153",
                 by_path("flash_attention_bwd_dkv"), bwd,
                 max(bwd_err["dk"], bwd_err["dv"]), timing(bwd["dkv"]), bwd["library_ms"],
-                **bwd_library),
+                **bwd_library, plan=bwd["plan"], more_shapes=bwd_shapes("dkv")),
         summary("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:75",
                 by_path("flash_decode"), fd, fd["max_abs_err"], timing(fd),
                 fd["library_ms"]),

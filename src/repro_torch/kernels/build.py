@@ -101,17 +101,22 @@ def load_library() -> ctypes.CDLL:
                                         f32, i32, i32, ptr]
     lib.flash_attention_fwd.restype = i32
     # (q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH, D, scale, causal,
-    #  is_bf16, stream)
+    #  is_bf16, grid x, y, z, stream): the grid of `bwd_plan`
     lib.flash_attention_bwd_dq.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                            i32, i32, i32, i32, i32, i32,
-                                           f32, i32, i32, ptr]
+                                           f32, i32, i32, i32, i32, i32, ptr]
     lib.flash_attention_bwd_dq.restype = i32
     # (q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, KVH, D, scale, causal,
-    #  is_bf16, stream)
+    #  is_bf16, q_tile, grid x, y, z, cluster, heads_per_block, stream)
     lib.flash_attention_bwd_dkv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                             i32, i32, i32, i32, i32, i32,
-                                            f32, i32, i32, ptr]
+                                            f32, i32, i32, i32, i32, i32, i32, i32, i32,
+                                            ptr]
     lib.flash_attention_bwd_dkv.restype = i32
+    # (B, Sq, Skv, H, KVH, D, q_tile, grid x, y, z, cluster, heads_per_block,
+    #  int* max_clusters)
+    lib.flash_attention_bwd_dkv_max_clusters.argtypes = [i32] * 12 + [ptr]
+    lib.flash_attention_bwd_dkv_max_clusters.restype = i32
     # (q, k, v, out, partial, B, S, H, KVH, D, kv_len, n_splits, split_len,
     #  scale, is_bf16, stream)
     lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,

@@ -11,7 +11,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_SOURCES = sorted(PORT.rglob("*.py"))
+SOURCES = PORT_SOURCES + [ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_ab.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
@@ -31,7 +32,7 @@ def test_source_imports_no_jax_and_no_reference_package(path):
 
 
 def test_every_module_is_checked():
-    names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
+    names = {p.relative_to(PORT).as_posix() for p in PORT_SOURCES}
     for needed in ("__init__.py", "convert.py", "configs/base.py", "models/lm.py",
                    "models/attention.py", "models/layers.py", "kernels/build.py",
                    "kernels/ops.py", "kernels/flash_attention.py",
