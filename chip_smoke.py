@@ -13,14 +13,14 @@ Phases, one JSON object a line:
            training shape, with its plan
   checks   every kernel against its plain PyTorch version on the card, over
            the serving path's shapes and the awkward ones (ragged lengths,
-           D=128, KVH=H, non-causal, fp32), with device times (CUDA-graph
-           replay), eager call times and roofline bounds
+           D=128, KVH=H, G=6, KVH=1, non-causal, fp32), with device times
+           (CUDA-graph replay), eager call times and roofline bounds
            and, for the training path, K1 and the backward kernels K2a (dq)
            and K2b (dk, dv) at the training shape and the awkward ones (also
            G=6 and G=16, K2b's clusters of 6 and of 8 blocks walking 2 heads),
-           each K2 launch repeated and required to agree bit for bit, each
-           row with its plan (tiles, cluster size); K2 also timed at S=4096
-           (B=1) and at D=128 (yi-6b's heads, B=2, S=1024)
+           each K1 and K2 launch repeated and required to agree bit for bit,
+           each K2 row with its plan (tiles, cluster size); K1 and K2 also
+           timed at S=4096 (B=1) and at D=128 (yi-6b's heads, B=2, S=1024)
   serve    tinyllama-1.1b at full width and depth, bf16, seeded random
            weights: one 512-token prefill through `forward` (flash_attention)
            and `ServingEngine.generate` for 32 greedy steps (flash_decode at
@@ -57,8 +57,9 @@ Phases, one JSON object a line:
            clock, and one step replayed as a CUDA graph), tokens/s, MFU and
            peak memory
   kernels  the summary line: per kernel its launches on each path, error,
-           time, plain time, bound and the library call's time; K4 also its
-           launches by route and both routes' times at T=2048 and T=256
+           time, plain time, bound and the library call's time; K1 and K2
+           also at S=4096 and D=128 (`more_shapes`); K4 also its launches by
+           route and both routes' times at T=2048 and T=256
 then the card's name and power limit, then {"ok": true, "device": ...}.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
@@ -287,6 +288,8 @@ def randn(gen, shape, dtype):
 # --------------------------------------------------------------------------------
 
 def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=False) -> dict:
+    """K1 against its plain version (out and lse), and twice on the same
+    inputs (the two launches must agree bit for bit)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
@@ -294,6 +297,7 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=Fa
     k = randn(gen, (b, skv, kvh, d), dtype)
     v = randn(gen, (b, skv, kvh, d), dtype)
     out, lse = flash_attention(q, k, v, causal=causal)
+    out2, lse2 = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     want, want_lse = flash_attention_plain(q, k, v, causal=causal)
     tol = TOL[dtype]
@@ -302,7 +306,10 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=Fa
                      "dtype": str(dtype).split(".")[-1], "causal": causal},
            "tol": tol,
            "max_abs_err": compare("flash_attention out", out, want, tol),
-           "lse_max_abs_err": compare("flash_attention lse", lse, want_lse, tol)}
+           "lse_max_abs_err": compare("flash_attention lse", lse, want_lse, tol),
+           "bit_identical": bool(torch.equal(out, out2) and torch.equal(lse, lse2))}
+    if not row["bit_identical"]:
+        raise AssertionError("flash_attention: two launches on the same inputs differ")
     if timed:
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
@@ -312,7 +319,7 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=Fa
         row.update(
             kernel_ms=device_ms(lambda: flash_attention(q, k, v, causal=causal)),
             call_ms=call_ms(lambda: flash_attention(q, k, v, causal=causal)),
-            plain_ms=device_ms(lambda: flash_attention_plain(q, k, v, causal=causal)),
+            plain_ms=device_ms(lambda: flash_attention_plain(q, k, v, causal=causal), launches=3),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)),
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
@@ -431,11 +438,11 @@ def phase_occupancy(cfg) -> dict:
             "sms": torch.cuda.get_device_properties(0).multi_processor_count}
 
 
-def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict]:
+def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict, dict]:
     """K2a/K2b over the training path's shape and the awkward ones, and K1 at
     the training path's shape; returns the two timed rows at the training
-    shape and K2's timed rows at S=4096 (tinyllama's heads, B=1) and at
-    D=128 (``wide_cfg``'s heads, B=2, S=1024)."""
+    shape and K1's and K2's timed rows at S=4096 (tinyllama's heads, B=1)
+    and at D=128 (``wide_cfg``'s heads, B=2, S=1024)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -443,15 +450,14 @@ def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict]:
                                dtype=bf16, causal=True, timed=True)
     bwd = check_flash_attention_bwd(gen, b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, h=h, kvh=kvh,
                                     d=d, dtype=bf16, causal=True, timed=True)
-    more = {
-        "S=4096": check_flash_attention_bwd(gen, b=1, sq=4096, skv=4096, h=h, kvh=kvh, d=d,
-                                            dtype=bf16, causal=True, timed=True),
-        "D=128": check_flash_attention_bwd(gen, b=2, sq=TRAIN_SEQ, skv=TRAIN_SEQ,
-                                           h=wide_cfg.n_heads, kvh=wide_cfg.n_kv_heads,
-                                           d=wide_cfg.head_dim, dtype=bf16, causal=True,
-                                           timed=True),
-    }
-    rows = [fa, bwd, *more.values()]
+    more_shapes = {"S=4096": dict(b=1, sq=4096, skv=4096, h=h, kvh=kvh, d=d),
+                   "D=128": dict(b=2, sq=TRAIN_SEQ, skv=TRAIN_SEQ, h=wide_cfg.n_heads,
+                                 kvh=wide_cfg.n_kv_heads, d=wide_cfg.head_dim)}
+    fa_more = {key: check_flash_attention(gen, **kw, dtype=bf16, causal=True, timed=True)
+               for key, kw in more_shapes.items()}
+    more = {key: check_flash_attention_bwd(gen, **kw, dtype=bf16, causal=True, timed=True)
+            for key, kw in more_shapes.items()}
+    rows = [fa, bwd, *fa_more.values(), *more.values()]
     for kw in (
         dict(b=2, sq=333, skv=333, h=h, kvh=kvh, d=d, dtype=bf16, causal=True),   # no tile multiple
         dict(b=2, sq=512, skv=512, h=8, kvh=2, d=32, dtype=bf16, causal=True),
@@ -468,7 +474,7 @@ def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict]:
         rows.append(check_flash_attention_bwd(gen, **kw))
     for row in rows:
         emit({"phase": "checks", "path": "train", **row})
-    return fa, bwd, more
+    return fa, bwd, fa_more, more
 
 
 def phase_checks(cfg) -> tuple[dict, dict]:
@@ -486,6 +492,8 @@ def phase_checks(cfg) -> tuple[dict, dict]:
         dict(b=2, sq=512, skv=512, h=8, kvh=8, d=d, dtype=bf16, causal=True),     # KVH == H
         dict(b=2, sq=512, skv=512, h=8, kvh=2, d=d, dtype=bf16, causal=False),
         dict(b=2, sq=200, skv=333, h=8, kvh=2, d=32, dtype=bf16, causal=False),   # Sq != Skv
+        dict(b=2, sq=333, skv=333, h=12, kvh=2, d=d, dtype=bf16, causal=True),    # G=6
+        dict(b=1, sq=256, skv=256, h=16, kvh=1, d=d, dtype=bf16, causal=True),    # KVH == 1
         dict(b=2, sq=333, skv=333, h=8, kvh=2, d=d, dtype=fp32, causal=True),
         dict(b=1, sq=256, skv=256, h=4, kvh=4, d=128, dtype=fp32, causal=False),
         dict(b=1, sq=130, skv=130, h=4, kvh=1, d=32, dtype=fp32, causal=True),
@@ -1153,12 +1161,13 @@ def main() -> int:
     ptxas = build_with_report()
     lib = build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": Path(lib._name).name,
-          "sources": [str(s.relative_to(ROOT)) for s in build.sources()], "ptxas": ptxas})
+          "sources": [str(s.relative_to(ROOT)) for s in build.sources() + build.headers()],
+          "ptxas": ptxas})
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     emit(phase_occupancy(cfg))
     fa, fd = phase_checks(cfg)
-    fa_train, bwd, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
+    fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route = phase_serve_hybrid(hybrid)
@@ -1171,6 +1180,9 @@ def main() -> int:
     def bwd_shapes(part):
         return {key: {"shape": row["shape"], "plan": row["plan"], **timing(row[part]),
                       "library_ms": row["library_ms"]} for key, row in bwd_more.items()}
+
+    fa_shapes = {key: {"shape": row["shape"], "max_abs_err": row["max_abs_err"], **timing(row),
+                       "library_ms": row["library_ms"]} for key, row in fa_more.items()}
 
     def summary(name, source, replaces, launches_by_path, row, err, times, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -1192,7 +1204,8 @@ def main() -> int:
                 by_path("flash_attention"),
                 fa, fa["max_abs_err"], timing(fa), fa["library_ms"],
                 train_shape={"shape": fa_train["shape"], **timing(fa_train),
-                             "library_ms": fa_train["library_ms"]}),
+                             "library_ms": fa_train["library_ms"]},
+                more_shapes=fa_shapes),
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                 "src/repro/kernels/flash_attention_bwd.py:132",
                 by_path("flash_attention_bwd_dq"), bwd, bwd_err["dq"],

@@ -5,32 +5,53 @@
 //   O = softmax(scale * Q K^T [+ causal mask]) V   for grouped-query attention,
 //   q (B,Sq,H,D), k/v (B,Skv,KVH,D) -> o (B,Sq,H,D), plus lse (B,Sq,H) fp32,
 // with an online softmax (fp32 running max / sum / accumulator), so the
-// (Sq x Skv) scores never reach device memory. `lse` is a second output that
-// the TPU forward did not have: the backward kernels need it.
+// (Sq x Skv) scores never reach device memory. `lse` (natural log) is a second
+// output that the TPU forward did not have: the backward kernels read it.
 //
 // What bounds it on an H100: at the serving path's shape (B=4, S=512, H=32,
-// KVH=4, D=64, bf16, causal) the 19 MB of q, k, v, o at 3.35 TB/s take longer
-// than the 4.3 GFLOP at the tensor cores' 989 TFLOP/s, so the bound is bytes.
-// The design therefore reads q once and writes o once per block, keeps every
-// intermediate in registers or shared memory, and leaves K/V re-reads (each
-// K/V tile is read by the G = H/KVH query heads of its group and by every
-// q-tile) to the 50 MB L2, which holds all of k and v at these sizes.
+// KVH=4, D=64, bf16, causal) the 19 MB of q, k, v, o and lse at 3.35 TB/s
+// (5.7 us) take longer than the 4.3 GFLOP at the tensor cores' 989 TFLOP/s,
+// so the bound is bytes; at the training path's shape (B=4, S=1024) the
+// 17.2 GFLOP take 17.4 us against 11 us of bytes: operations. Every product
+// therefore runs on the tensor cores (`mma.sync.m16n8k16`, bf16 operands,
+// fp32 accumulate), q is read and o written once per block, the scores and
+// probabilities stay in registers (the C fragments of S are repacked as the
+// A fragments of P V), no tile above the causal diagonal is visited, and the
+// K/V re-reads (by the G = H/KVH heads of a group and by every q-tile) are
+// left to the 50 MB L2, which holds all of k and v at these sizes.
 //
-// What differs from the TPU kernel, whose grid ran in order on one core and
-// carried the accumulator in scratch between grid steps:
-//   * one block per (batch, query head, 64-row q-tile); the loop over KV tiles
-//     is inside the block and the running max / sum / acc stay in registers;
-//   * the (B,S,H,D) layout is read in place by computing offsets (no
-//     transposed copies); the KV head of query head h is h / G;
-//   * ragged tails are masked, so neither Sq nor Skv need be a tile multiple;
-//   * under `causal`, KV tiles wholly above the diagonal are skipped;
-//   * bf16 operands go to the tensor cores as bf16 (`mma.sync.m16n8k16`, fp32
-//     accumulate) instead of being upcast tile by tile; fp32 inputs take a
-//     second kernel that does the products as fp32 FMAs, since the tensor
-//     cores have no IEEE fp32 mode and TF32 would miss the 2e-5 tolerance.
-// The causal mask is top-left aligned (key index <= query index, no offset),
-// as on the model path; the wrapper only admits `causal` with Sq == Skv.
-// NEG_INF = -1e30 and the max(l, 1e-30) floor are kept so no row yields NaN.
+// Design (bf16), the pipeline of the backward's dq pass (K2a):
+//   * One 4-warp block per (64-row q-tile, query head, batch); warp w owns
+//     rows [16w, 16w+16). The KV loop is inside the block, the running max,
+//     sum and accumulator stay in registers. Grid (B*H, q-tiles): with
+//     `causal` blockIdx.y = 0 is the LAST q-tile, which walks the most key
+//     tiles, so the launch hands out the longest blocks first and the short
+//     ones fill the tail instead of setting it.
+//   * Copies overlap products: Q comes by cp.async with the first stages of
+//     a ring of K/V tiles (3 stages at D <= 64, 2 at D = 128); tile j+ST-1 is
+//     in flight while tile j's two products run, so no tile's copy latency
+//     stands between two barriers. Rows past the lengths load as zeros
+//     (src-size 0).
+//   * Operands come through ldmatrix (`mma_tile.cuh`, shared with K2): Q's A
+//     fragments once, into registers, at every D; K's B fragments by plain
+//     ldmatrix, one x4 load for two mma; V's by ldmatrix.trans.
+//   * Masks only where a tile needs one (`softmax_step<MASK>`): the causal
+//     mask on the tile that crosses the diagonal, the length mask on the
+//     ragged last tile; every other tile takes no index computation, compare
+//     or select per score.
+//   * Scores are scaled once by scale * log2(e) and exponentiated by ex2;
+//     lse = m ln 2 + ln l comes out in natural log, as K2a/K2b read it.
+//   * o is normalised, staged in the warp's own rows of the (then free) Q
+//     buffer, and written in 16-byte pieces, one row of D at a time, not as
+//     4-byte pieces scattered over 8 rows.
+//   * At most 168 registers at D <= 64, so 3 blocks (64 KB of shared memory
+//     each at D = 64) share an SM; 2 blocks at D = 128. No spills.
+// Rows past Sq are computed on zeros and never written. The causal mask is
+// top-left aligned (key index <= query index, no offset), as on the model
+// path; the wrapper only admits `causal` with Sq == Skv. NEG_INF = -1e30 and
+// the max(l, 1e-30) floor are kept so no row yields NaN. fp32 inputs take a
+// second kernel that does the products as IEEE fp32 FMAs, since the tensor
+// cores have no IEEE fp32 mode and TF32 would miss the 2e-5 tolerance.
 //
 // Plain C interface, no allocation, no synchronisation: the caller provides
 // outputs and the stream, and gets cudaGetLastError() back.
@@ -39,211 +60,191 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BM = 64;   // query rows per block
-constexpr int BN = 64;   // keys per KV tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int BN = 64;                    // keys per KV tile
+constexpr int MMA_WARPS = 4;              // bf16: 16 query rows a warp
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_BM = 16 * MMA_WARPS;    // bf16: query rows per block
+constexpr int BM = 64;                    // fp32: query rows per block
+
+template <int D> __host__ __device__ constexpr int fwd_stages() { return D <= 64 ? 3 : 2; }
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return (size_t)(MMA_BM + fwd_stages<D>() * 2 * BN) * (D + 8) * sizeof(__nv_bfloat16);
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Four 8x8 bf16 matrices from shared memory, each transposed on the way, so
-// that row-major V[key][d] arrives as the k-major B operand of P.V.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low 16 bits) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copies `ROWS` rows of D bf16 (row `r` of the tile is row `row0 + r` of a
-// (S, heads, D) slab, head `head`) into shared memory with row stride LD, in
-// 16-byte pieces; rows at or beyond `S` are zero-filled.
-template <int D, int LD, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int S, int heads, int head) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += blockDim.x) {
-    int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-    int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) {
-      size_t off = ((size_t)row * heads + head) * D + c;
-      val = *reinterpret_cast<const uint4*>(src + off);
+// One KV tile's online-softmax step for the thread's rows row_a and row_a + 8.
+// s holds the tile's Q K^T (C fragments) and leaves as P; m_run (log2 units)
+// and l_run (this thread's share of the row sum) are updated and acc
+// rescaled. With MASK, keys at or beyond Skv and (causal) keys above the row
+// get NEG_INF; col0 is the key of s[0][0].
+template <bool MASK, int NT, int D>
+__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&acc)[D / 8][4],
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             float scale_log2, int row_a, int col0, int Skv,
+                                             int causal) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[nt][e] * scale_log2;
+      if (MASK) {
+        const int col = col0 + nt * 8 + (e & 1), row = row_a + (e >> 1) * 8;
+        if (col >= Skv || (causal && col > row)) x = NEG_INF;
+      }
+      s[nt][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    alpha[r] = ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(s[nt][e] - m_run[e >> 1]);
+      s[nt][e] = p;
+      psum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] *= alpha[0]; acc[i][1] *= alpha[0];
+    acc[i][2] *= alpha[1]; acc[i][3] *= alpha[1];
   }
 }
 
-// 4 warps; warp w owns query rows [16w, 16w+16) of the tile. Within a warp the
-// mma fragment layout gives thread (g = lane/4, t = lane%4) rows g and g+8.
+// In the mma fragment layout thread (g = lane/4, t = lane%4) of warp w holds
+// query rows 16w + g and 16w + g + 8 of the block's tile.
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 3 : 2)
 attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              float* __restrict__ lse, int Sq, int Skv, int H, int KVH, float scale,
              int causal) {
-  constexpr int LD = D + 8;   // +16 bytes a row: fragment loads hit 32 distinct banks
+  constexpr int LD = D + 8;   // +16 bytes a row: ldmatrix rows hit distinct banks
+  constexpr int ST = fwd_stages<D>(), NT = BN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BM * LD;
-  __nv_bfloat16* Vs = Ks + BN * LD;
+  __nv_bfloat16* ring = Qs + MMA_BM * LD;   // ST stages of (K, V)
 
-  const int m0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int nq = (Sq + MMA_BM - 1) / MMA_BM;
+  const int m0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * MMA_BM;
   const int kvh = h / (H / KVH);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * H * D;
   const __nv_bfloat16* kb = k + (size_t)b * Skv * KVH * D;
   const __nv_bfloat16* vb = v + (size_t)b * Skv * KVH * D;
+  const int n_end = causal ? min(Skv, m0 + MMA_BM) : Skv;   // tiles above the diagonal skipped
+  const int ntiles = (n_end + BN - 1) / BN;
 
-  load_tile_bf16<D, LD, BM>(Qs, qb, m0, Sq, H, h);
-  __syncthreads();
-
-  // Q fragments stay in registers for the whole KV loop.
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* q0 = Qs + (warp * 16 + g) * LD + t * 2;
+  auto load_kv = [&](int j) {
+    __nv_bfloat16* Ks = ring + (j % ST) * 2 * BN * LD;
+    cp_async_tile<D, LD, BN, MMA_THREADS>(Ks, kb, j * BN, Skv, KVH, kvh);
+    cp_async_tile<D, LD, BN, MMA_THREADS>(Ks + BN * LD, vb, j * BN, Skv, KVH, kvh);
+  };
+  cp_async_tile<D, LD, MMA_BM, MMA_THREADS>(Qs, q + (size_t)b * Sq * H * D, m0, Sq, H, h);
+  cp_async_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + kk * 16);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(q0 + 8 * LD + kk * 16);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + kk * 16 + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(q0 + 8 * LD + kk * 16 + 8);
-    }
+  for (int j = 0; j < ST - 1; ++j) {
+    if (j < ntiles) load_kv(j);
+    cp_async_commit();
   }
+
+  // Q's A fragments stay in registers for the whole KV loop.
+  __nv_bfloat16* q_rows = Qs + warp * 16 * LD;
+  uint32_t qf[D / 16][4];
+  cp_async_wait<ST - 1>();               // Q is in
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], q_rows, kk, lane);
 
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};          // this thread's share; summed over the quad at the end
-
+  float l_run[2] = {0.f, 0.f};
   const int row_a = m0 + warp * 16 + g;  // rows of acc[.][0..1]; acc[.][2..3] are row_a + 8
-  const int n_end = causal ? min(Skv, m0 + BM) : Skv;   // tiles above the diagonal are skipped
+  const float scale_log2 = scale * LOG2E;
 
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();                     // every warp is done with the previous K/V tile
-    load_tile_bf16<D, LD, BN>(Ks, kb, n0, Skv, KVH, kvh);
-    load_tile_bf16<D, LD, BN>(Vs, vb, n0, Skv, KVH, kvh);
-    __syncthreads();
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<ST - 2>();             // this thread's pieces of tile j are in
+    __syncthreads();                     // everyone's are; the stage of tile j - 1 is free
+    if (j + ST - 1 < ntiles) load_kv(j + ST - 1);
+    cp_async_commit();
+    const __nv_bfloat16* Ks = ring + (j % ST) * 2 * BN * LD;
+    const __nv_bfloat16* Vs = Ks + BN * LD;
 
-    // S = Q K^T for this warp's 16 rows against 64 keys: 8 n-tiles of 8 keys.
-    float s[BN / 8][4];
+    float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-        mma_bf16_16816(s[nt], qf[kk], b0, b1);
-      }
-    }
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    mma_abt<D, LD, NT>(s, qf, Ks, lane);           // S = Q K^T
 
-    // scale, mask (ragged tail and diagonal), running max
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int col = n0 + nt * 8 + t * 2 + (e & 1);
-        int row = row_a + (e >> 1) * 8;
-        bool ok = col < Skv && (!causal || col <= row);
-        float x = ok ? s[nt][e] * scale : NEG_INF;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = __expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = __expf(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        psum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha[0]; acc[i][1] *= alpha[0];
-      acc[i][2] *= alpha[1]; acc[i][3] *= alpha[1];
-    }
-
-    // acc += P V. The C fragments of two neighbouring n-tiles of S are exactly
-    // the A fragment of one 16-key step, so P never leaves registers.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // lane -> row of one of the four 8x8 blocks: keys (+8 for odd blocks),
-      // d-columns (+8 for blocks 2 and 3)
-      const __nv_bfloat16* vrow =
-          Vs + (kk * 16 + (lane % 8) + ((lane / 8) & 1) * 8) * LD + (lane / 16) * 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vrow + dt * 16);
-        mma_bf16_16816(acc[2 * dt], pa, vf[0], vf[1]);
-        mma_bf16_16816(acc[2 * dt + 1], pa, vf[2], vf[3]);
-      }
-    }
+    const int n0 = j * BN;
+    if ((causal && n0 + BN - 1 > m0) || n0 + BN > Skv)   // the diagonal tile; the ragged last
+      softmax_step<true, NT, D>(s, acc, m_run, l_run, scale_log2, row_a, n0 + t * 2, Skv, causal);
+    else
+      softmax_step<false, NT, D>(s, acc, m_run, l_run, scale_log2, row_a, n0 + t * 2, Skv, causal);
+    mma_xt<D, LD, BN / 16>(acc, s, Vs, lane);      // acc += P V
   }
 
-  // epilogue: finish the row sums over the quad, normalise, store o and lse
+  // Epilogue: finish the row sums over the quad, write lse, normalise o into
+  // the warp's own 16 rows of Qs (only this warp ever read them), then store
+  // those rows in 16-byte pieces.
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    l_run[r] = fmaxf(l_run[r], 1e-30f);
+    const float l = fmaxf(l_run[r], 1e-30f);
+    inv[r] = 1.f / l;
+    const int row = row_a + r * 8;
+    if (t == 0 && row < Sq) lse[((size_t)b * Sq + row) * H + h] = m_run[r] * LN2 + logf(l);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int row = row_a + r * 8;
-    if (row >= Sq) continue;
-    float inv = 1.f / l_run[r];
-    size_t base = (((size_t)b * Sq + row) * H + h);
-    __nv_bfloat16* orow = o + base * D;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(orow + i * 8 + t * 2) =
-          pack_bf16(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
-    }
-    if (t == 0) lse[base] = m_run[r] + logf(l_run[r]);
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(q_rows + (g + r * 8) * LD + i * 8 + t * 2) =
+          pack_bf16(acc[i][2 * r] * inv[r], acc[i][2 * r + 1] * inv[r]);
+  }
+  __syncwarp();                          // every lane's rows are staged
+  constexpr int CHUNKS = D / 8;          // 16-byte pieces a row
+#pragma unroll
+  for (int j = 0; j < 16 * CHUNKS / 32; ++j) {
+    const int i = lane + j * 32, r = i / CHUNKS, c = (i % CHUNKS) * 8, row = m0 + warp * 16 + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + row) * H + h) * D + c) =
+          *reinterpret_cast<const uint4*>(q_rows + r * LD + c);
   }
 }
 
@@ -395,12 +396,12 @@ template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Sq, int Skv, int H, int KVH, float scale, int causal,
                        cudaStream_t stream) {
-  size_t smem = (size_t)(BM + 2 * BN) * (D + 8) * sizeof(__nv_bfloat16);
+  constexpr size_t smem = fwd_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BM - 1) / BM, H, B);
-  attn_fwd_mma<D><<<grid, 128, smem, stream>>>(
+  dim3 grid(B * H, (Sq + MMA_BM - 1) / MMA_BM);
+  attn_fwd_mma<D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KVH,
       scale, causal);
@@ -425,12 +426,15 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, flo
 }  // namespace
 
 // Returns 0, a cudaError_t, or -1 for a shape or type this file has no kernel
-// for (head dims 32, 64, 128; H a multiple of KVH; B and H within the grid's
-// y/z limits). All tensors contiguous in the layouts named at the top.
+// for (head dims 32, 64, 128; H a multiple of KVH; B, H and the q-tiles within
+// the grids' limits). All tensors contiguous in the layouts named at the top.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Skv, int H, int KVH, int D,
                                    float scale, int causal, int is_bf16, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH != 0 || B > 65535 || H > 65535) return -1;
+  // the bf16 grid is (B*H, q-tiles): x up to 2^31 - 1, y up to 65535
+  if (is_bf16 && ((long long)B * H > 0x7fffffffLL || (Sq + MMA_BM - 1) / MMA_BM > 65535))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
 #define DISPATCH(FN)                                                                         \

@@ -1,0 +1,169 @@
+// The bf16 fragment helpers of the hand-written attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): warp-level tensor-core
+// products (`mma.sync.m16n8k16`, bf16 operands, fp32 accumulate) on tiles in
+// shared memory, their operands through `ldmatrix`, and the `cp.async` copies
+// that fill those tiles. Included by the .cu files; not compiled on its own.
+//
+// Fragment layout (PTX ISA, m16n8k16): in a warp, thread (g = lane/4,
+// t = lane%4) holds C rows g and g+8, columns 2t and 2t+1 of each 8-column
+// n-tile.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 address the rows
+// of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same, each matrix transposed on the way.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes from global to shared memory through L2 only; zeros where !valid
+// (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 4 bytes, the same way (lse and delta: one fp32 a row, H apart).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low 16 bits) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// `ROWS` rows of D bf16 into shared memory with row stride LD, by cp.async
+// from the block's THREADS threads: row r of the tile is row row0 + r of a
+// (S, heads, D) slab, head `head`; rows at or beyond S arrive as zeros.
+template <int D, int LD, int ROWS, int THREADS = 128>
+__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              int row0, int S, int heads, int head) {
+  constexpr int CHUNKS = D / 8;
+  static_assert((ROWS * CHUNKS) % THREADS == 0, "whole rounds of 16-byte pieces");
+#pragma unroll
+  for (int j = 0; j < ROWS * CHUNKS / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS, r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * LD + c, src + ((size_t)(ok ? row0 + r : 0) * heads + head) * D + c, ok);
+  }
+}
+
+// The A fragment of columns [16kk, 16kk + 16) of the 16 rows at `rows` (a
+// row-major tile in shared memory): lanes 0-15 address rows 0-15 at column
+// 16kk, lanes 16-31 the same rows at 16kk + 8.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* rows, int kk,
+                                       int lane) {
+  ldmatrix_x4(a, rows + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+}
+
+// c (16 x 8NT) += a . T^T for one 16-column slice kk: `a` the A fragment of
+// columns [16kk, 16kk + 16), T a row-major (8NT x D) tile in shared memory
+// whose rows are the n index, so its B fragments come straight from
+// ldmatrix: `brow` (from b_rows) has lanes 0-7 / 8-15 / 16-23 / 24-31 address
+// rows 0-7 / 0-7 / 8-15 / 8-15 of a 16-row pair of n-tiles, at columns 16kk /
+// 16kk + 8 / 16kk / 16kk + 8.
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* b_rows(const __nv_bfloat16* tile, int lane) {
+  return tile + ((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) & 1) * 8;
+}
+
+template <int LD, int NT>
+__device__ __forceinline__ void mma_abt_slice(float (&c)[NT][4], const uint32_t (&a)[4],
+                                              const __nv_bfloat16* brow, int kk) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t bf[4];
+    ldmatrix_x4(bf, brow + np * 16 * LD + kk * 16);
+    mma_bf16_16816(c[2 * np], a, bf[0], bf[1]);
+    mma_bf16_16816(c[2 * np + 1], a, bf[2], bf[3]);
+  }
+}
+
+// c (16 x 8NT) += A (16 x D) . T^T, A's D/16 fragments in registers.
+template <int D, int LD, int NT>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&areg)[D / 16][4],
+                                        const __nv_bfloat16* tile, int lane) {
+  const __nv_bfloat16* brow = b_rows<LD>(tile, lane);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) mma_abt_slice<LD, NT>(c, areg[kk], brow, kk);
+}
+
+// The same with A read from the warp's 16 rows at `arows` (shared memory).
+template <int D, int LD, int NT>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const __nv_bfloat16* arows,
+                                        const __nv_bfloat16* tile, int lane) {
+  const __nv_bfloat16* brow = b_rows<LD>(tile, lane);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    load_a<LD>(a, arows, kk, lane);
+    mma_abt_slice<LD, NT>(c, a, brow, kk);
+  }
+}
+
+// acc (16 x D) += X (16 x 16KT, C fragments in x, rounded to bf16 here) . T,
+// T a row-major (16KT x D) tile in shared memory read through ldmatrix.trans.
+template <int D, int LD, int KT>
+__device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4], const float (&x)[2 * KT][4],
+                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    uint32_t xa[4];
+    xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const __nv_bfloat16* row =
+        tile + (kk * 16 + (lane % 8) + ((lane / 8) & 1) * 8) * LD + (lane / 16) * 8;
+#pragma unroll
+    for (int dt = 0; dt < D / 16; ++dt) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, row + dt * 16);
+      mma_bf16_16816(acc[2 * dt], xa, bf[0], bf[1]);
+      mma_bf16_16816(acc[2 * dt + 1], xa, bf[2], bf[3]);
+    }
+  }
+}
+
+}  // namespace

@@ -4,7 +4,8 @@ use, and loads it with ``ctypes``.
 Each ``*.cu`` exposes a plain C interface (no PyTorch headers), so ``nvcc``
 needs seconds. One ``nvcc -c`` per source runs in parallel, then one link.
 The library goes to ``build/repro_torch/`` at the root of the checkout and is
-named after a hash of the sources and flags, so an edited source rebuilds.
+named after a hash of the sources, the headers they include and the flags, so
+an edited source or header rebuilds.
 A failed build or load raises; nothing falls back.
 """
 from __future__ import annotations
@@ -30,6 +31,12 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (``mma_tile.cuh``): not compiled on
+    their own, but hashed with the sources, so an edited header rebuilds."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -44,7 +51,7 @@ def find_nvcc() -> str:
 
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *headers()]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

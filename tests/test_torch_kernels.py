@@ -49,6 +49,8 @@ ATTN_SHAPES = [
     (2, 256, 4, 1, 32, False, 128, 256),
     (1, 384, 4, 4, 128, True, 128, 128),
     (1, 256, 8, 2, 64, False, 64, 64),
+    (2, 256, 12, 2, 64, True, 128, 128),    # G=6, as the card checks K1 at S=333
+    (1, 256, 16, 1, 64, True, 128, 128),    # KVH=1: one KV head for every query head
 ]
 
 

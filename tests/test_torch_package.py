@@ -12,7 +12,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_SOURCES = sorted(PORT.rglob("*.py"))
-SOURCES = PORT_SOURCES + [ROOT / "chip_smoke.py", ROOT / "tools" / "bwd_ab.py"]
+SOURCES = PORT_SOURCES + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
@@ -43,7 +43,7 @@ def test_every_module_is_checked():
                    "train/step.py", "data/pipeline.py", "launch/train.py"):
         assert needed in names
     for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
-               "ssd_scan.cu", "fused_ffn.cu"):
+               "ssd_scan.cu", "fused_ffn.cu", "mma_tile.cuh"):
         assert (PORT / "csrc" / cu).is_file()
 
 
@@ -198,7 +198,7 @@ def test_forward_wrappers_refuse_inputs_whose_gradient_they_would_drop():
             flash_decode(q[:, 0], k, k, 5)
 
 
-def test_kernel_build_finds_its_sources_and_raises_without_a_compiler(monkeypatch):
+def test_kernel_build_finds_its_sources_and_raises_without_a_compiler(monkeypatch, tmp_path):
     import shutil
 
     from repro_torch.kernels import build
@@ -207,10 +207,21 @@ def test_kernel_build_finds_its_sources_and_raises_without_a_compiler(monkeypatc
     assert names == sorted(names)
     assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu", "ssd_scan.cu",
             "fused_ffn.cu"} <= set(names)
-    # the library's name follows the sources' content and the flags
+    # headers are hashed, not compiled on their own
+    assert [p.name for p in build.headers()] == ["mma_tile.cuh"]
+    # the library's name follows the sources' content, the headers' and the flags
     digest = build._digest(build.sources())
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-DX",))
     assert build._digest(build.sources()) != digest
+    # an edited header changes the name too, so the library is rebuilt
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build._digest(build.sources())
+    assert before == build._digest(build.sources())
+    header = csrc / "mma_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build._digest(build.sources()) != before
     if shutil.which("nvcc") is None:
         monkeypatch.setenv("CUDA_HOME", "/nonexistent")
         with pytest.raises(RuntimeError, match="nvcc"):
