@@ -8,13 +8,21 @@ Phases, one JSON object a line:
   build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
            with each kernel's registers and spill bytes as ptxas reports them
            (template instances named by their arguments, e.g.
-           attn_bwd_dkv_mma<128,32>)
+           attn_bwd_dkv_mma<128,32>); K3's bf16 instances must not spill
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
            training shape, with its plan
   checks   every kernel against its plain PyTorch version on the card, over
            the serving path's shapes and the awkward ones (ragged lengths,
            D=128, KVH=H, G=6, KVH=1, non-causal, fp32), with device times
-           (CUDA-graph replay), eager call times and roofline bounds
+           (CUDA-graph replay), eager call times and roofline bounds;
+           K3 (one cluster launch a call) also at zamba2-1.2b's shared block
+           (G=1), B=8 S=2048 and a 32k-token cache at mistral-nemo-12b's
+           heads (all timed, with `sdpa` beside them), G=17 and G=32 (16-row
+           fragments), each row with its plan, launched twice (bit-identical),
+           with kv_len as a host int and as an int32 tensor on the card
+           (bit-identical), allocating no more than its output; and E2: one
+           tensor-kv_len call captured in a CUDA graph and replayed at six
+           positions, each replay equal to the host-int launch bit for bit;
            and, for the training path, K1 and the backward kernels K2a (dq)
            and K2b (dk, dv) at the training shape and the awkward ones (also
            G=6 and G=16, K2b's clusters of 6 and of 8 blocks walking 2 heads),
@@ -58,7 +66,8 @@ Phases, one JSON object a line:
            peak memory
   kernels  the summary line: per kernel its launches on each path, error,
            time, plain time, bound and the library call's time; K1 and K2
-           also at S=4096 and D=128 (`more_shapes`); K4 also its launches by
+           also at S=4096 and D=128, K3 with its plan and at its three other
+           timed shapes (`more_shapes`); K4 also its launches by
            route and both routes' times at T=2048 and T=256
 then the card's name and power limit, then {"ok": true, "device": ...}.
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -97,6 +106,7 @@ LOGIT_ATOL, LOGIT_RTOL = 0.25, 0.05
 
 ARCH, BATCH, PROMPT_LEN, GEN_STEPS, MAX_LEN = "tinyllama-1.1b", 4, 512, 32, 1024
 WIDE_ARCH = "yi-6b"        # K2 timed at its heads: H=32, KVH=4, D=128
+LONG_ARCH = "mistral-nemo-12b"   # K3 timed at its heads over a 32k cache: H=32, KVH=8, D=128
 HYBRID_ARCH, HYBRID_GEN_STEPS = "zamba2-1.2b", 16
 # (atol, rtol): |got - want| <= atol + rtol |want| in every element.
 # K5 computes in fp32 from the inputs' values, as its plain version does: on
@@ -327,21 +337,49 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=Fa
 
 
 def check_flash_decode(gen, *, b, h, kvh, d, s, kv_len, dtype, timed=False) -> dict:
+    """K3 against its plain version; twice on the same inputs (bit-identical);
+    with kv_len as a host int and as an int32 tensor on the card (the two
+    bit-identical); one call allocating no more than its output; with the
+    plan it ran."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, split_plan
+    from repro_torch.kernels.flash_decode import (decode_plan, flash_decode, flash_decode_plain,
+                                                  launch_plan, max_active_clusters)
 
     q = randn(gen, (b, h, d), dtype)
     k = randn(gen, (b, s, kvh, d), dtype)
     v = randn(gen, (b, s, kvh, d), dtype)
+    len_t = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
     out = flash_decode(q, k, v, kv_len)
+    again = flash_decode(q, k, v, kv_len)
+    by_tensor = flash_decode(q, k, v, len_t)
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kept = flash_decode(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - before
+    out_bytes = -(-kept.numel() * kept.element_size() // 512) * 512   # the allocator's blocks
+    del kept
+    plan = launch_plan(q.device.index, b, h, kvh, s, d, dtype)
+    active = max_active_clusters(plan, b, h, kvh, d, dtype, q.device.index)
     tol = TOL[dtype]
     row = {"kernel": "flash_decode",
            "shape": {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "kv_len": kv_len,
                      "dtype": str(dtype).split(".")[-1]},
-           "splits": split_plan(kv_len, b * kvh)[0], "tol": tol,
+           "plan": plan.summary(), "max_active_clusters": active,
+           "cpu_plan_cluster": decode_plan(b, kvh, h // kvh, s, d, dtype).cluster, "tol": tol,
            "max_abs_err": compare("flash_decode out", out,
-                                  flash_decode_plain(q, k, v, kv_len), tol)}
+                                  flash_decode_plain(q, k, v, kv_len), tol),
+           "bit_identical": bool(torch.equal(out, again)),
+           "tensor_kv_len_bit_identical": bool(torch.equal(out, by_tensor)),
+           "alloc_bytes": alloc, "out_bytes": out_bytes}
+    if not row["bit_identical"]:
+        raise AssertionError("flash_decode: two launches on the same inputs differ")
+    if not row["tensor_kv_len_bit_identical"]:
+        raise AssertionError("flash_decode: kv_len as a tensor and as a host int differ")
+    if alloc > out_bytes:
+        raise AssertionError(f"flash_decode: one call allocated {alloc} bytes, "
+                             f"more than its {out_bytes}-byte output")
     if timed:
         # this run's data: only the first kv_len positions of the cache are needed
         nbytes = q.element_size() * (2 * q.numel() + 2 * b * kv_len * kvh * d)
@@ -352,11 +390,46 @@ def check_flash_decode(gen, *, b, h, kvh, d, s, kv_len, dtype, timed=False) -> d
         row.update(
             kernel_ms=device_ms(lambda: flash_decode(q, k, v, kv_len)),
             call_ms=call_ms(lambda: flash_decode(q, k, v, kv_len)),
+            tensor_call_ms=call_ms(lambda: flash_decode(q, k, v, len_t)),
             plain_ms=device_ms(lambda: flash_decode_plain(q, k, v, kv_len)),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q4, kt, vt, enable_gqa=True)),
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
     return row
+
+
+def check_decode_graph(gen, *, b, h, kvh, d, s, dtype) -> dict:
+    """E2: one call with kv_len as an int32 tensor on the card, captured in a
+    CUDA graph, replayed after copying each of six positions into the tensor;
+    every replay must equal the host-int launch bit for bit and the plain
+    version within TOL."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+    q = randn(gen, (b, h, d), dtype)
+    k = randn(gen, (b, s, kvh, d), dtype)
+    v = randn(gen, (b, s, kvh, d), dtype)
+    len_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    flash_decode(q, k, v, len_t)                     # plan and attributes outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, len_t)
+    errs = {}
+    for kv_len in (1, 63, 64, 65, 543, s):
+        len_t.fill_(kv_len)
+        graph.replay()
+        got = out.clone()
+        want = flash_decode(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"flash_decode graph replay at kv_len {kv_len} differs from "
+                                 "the host-int launch")
+        errs[kv_len] = compare(f"flash_decode graph replay, kv_len {kv_len}", got,
+                               flash_decode_plain(q, k, v, kv_len), TOL[dtype])
+    return {"kernel": "flash_decode", "check": "cuda_graph_tensor_kv_len",
+            "shape": {"B": b, "H": h, "KVH": kvh, "D": d, "S": s,
+                      "dtype": str(dtype).split(".")[-1]},
+            "replays_bit_identical_to_host_int": True, "max_abs_err_by_kv_len": errs}
 
 
 def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=False) -> dict:
@@ -477,8 +550,10 @@ def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict, dict]:
     return fa, bwd, fa_more, more
 
 
-def phase_checks(cfg) -> tuple[dict, dict]:
-    """All shapes; returns the two rows taken at the serve path's shapes."""
+def phase_checks(cfg, hybrid, long_cfg) -> tuple[dict, dict, dict]:
+    """All shapes; returns the two rows taken at the serve path's shapes and
+    K3's timed rows at ``hybrid``'s shared block (G=1), B=8 S=2048 and a
+    32k-token cache at ``long_cfg``'s heads."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -503,19 +578,39 @@ def phase_checks(cfg) -> tuple[dict, dict]:
     fd_path = check_flash_decode(gen, b=BATCH, h=h, kvh=kvh, d=d, s=MAX_LEN,
                                  kv_len=PROMPT_LEN + GEN_STEPS - 1, dtype=bf16, timed=True)
     rows.append(fd_path)
+    fd_more = {
+        # zamba2-1.2b's shared block: MHA (G=1), its last step's length
+        "hybrid G=1": check_flash_decode(gen, b=BATCH, h=hybrid.n_heads, kvh=hybrid.n_kv_heads,
+                                         d=hybrid.head_dim, s=MAX_LEN,
+                                         kv_len=PROMPT_LEN + HYBRID_GEN_STEPS - 1, dtype=bf16,
+                                         timed=True),
+        "B=8 S=2048": check_flash_decode(gen, b=8, h=h, kvh=kvh, d=d, s=2048, kv_len=2048,
+                                         dtype=bf16, timed=True),
+        # long context at mistral-nemo-12b's heads: bytes, not latency, set the pace
+        "S=32768 D=128": check_flash_decode(gen, b=1, h=long_cfg.n_heads,
+                                            kvh=long_cfg.n_kv_heads, d=long_cfg.head_dim,
+                                            s=32768, kv_len=32768, dtype=bf16, timed=True),
+    }
+    rows.extend(fd_more.values())
     for kw in (
         dict(b=8, h=h, kvh=kvh, d=d, s=2048, kv_len=1, dtype=bf16),
         dict(b=8, h=h, kvh=kvh, d=d, s=2048, kv_len=700, dtype=bf16),
-        dict(b=8, h=h, kvh=kvh, d=d, s=2048, kv_len=2048, dtype=bf16, timed=True),
         dict(b=3, h=h, kvh=kvh, d=d, s=1000, kv_len=999, dtype=bf16),             # ragged cache
         dict(b=2, h=8, kvh=8, d=128, s=1000, kv_len=65, dtype=bf16),              # KVH == H
+        dict(b=2, h=8, kvh=2, d=32, s=500, kv_len=333, dtype=bf16),
+        dict(b=2, h=32, kvh=1, d=d, s=700, kv_len=699, dtype=bf16),               # G=32: 2 fragments
+        dict(b=1, h=17, kvh=1, d=d, s=300, kv_len=250, dtype=bf16),               # G=17: 16 + 1 rows
         dict(b=2, h=8, kvh=2, d=128, s=1000, kv_len=700, dtype=fp32),
+        dict(b=2, h=4, kvh=4, d=d, s=333, kv_len=200, dtype=fp32),                # G=1
         dict(b=1, h=4, kvh=4, d=32, s=64, kv_len=64, dtype=fp32),
     ):
         rows.append(check_flash_decode(gen, **kw))
+    rows.append(check_decode_graph(gen, b=BATCH, h=h, kvh=kvh, d=d, s=MAX_LEN, dtype=bf16))
+    rows.append(check_decode_graph(gen, b=BATCH, h=hybrid.n_heads, kvh=hybrid.n_kv_heads,
+                                   d=hybrid.head_dim, s=MAX_LEN, dtype=bf16))
     for row in rows:
         emit({"phase": "checks", **row})
-    return fa_path, fd_path
+    return fa_path, fd_path, fd_more
 
 
 def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False, both_routes=False) -> dict:
@@ -961,7 +1056,7 @@ def phase_serve_hybrid(cfg) -> dict:
 KERNEL_CLASSES = (("K1 flash_attention", ("attn_fwd",)),
                   ("K2a flash_attention_bwd_dq", ("attn_bwd_dq",)),
                   ("K2b flash_attention_bwd_dkv", ("attn_bwd_dkv",)),
-                  ("K3 flash_decode", ("decode_partial", "decode_combine")),
+                  ("K3 flash_decode", ("flash_decode",)),
                   ("K4 fused_ffn", ("ffn_mma", "ffn_fma", "ffn_combine", "ffn_gate_up_mma",
                                     "ffn_down_mma")),
                   ("K5 ssd_scan", ("ssd_chunk_scan",)),
@@ -1163,10 +1258,14 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": Path(lib._name).name,
           "sources": [str(s.relative_to(ROOT)) for s in build.sources() + build.headers()],
           "ptxas": ptxas})
+    k3_bf16 = {n: r for n, r in ptxas.items() if n.startswith("flash_decode_mma")}
+    if len(k3_bf16) != 3 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                                for r in k3_bf16.values()):
+        raise AssertionError(f"K3's bf16 instances must build without spills: {k3_bf16}")
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     emit(phase_occupancy(cfg))
-    fa, fd = phase_checks(cfg)
+    fa, fd, fd_more = phase_checks(cfg, hybrid, configs.get(LONG_ARCH))
     fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
@@ -1218,7 +1317,11 @@ def main() -> int:
                 **bwd_library, plan=bwd["plan"], more_shapes=bwd_shapes("dkv")),
         summary("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:75",
                 by_path("flash_decode"), fd, fd["max_abs_err"], timing(fd),
-                fd["library_ms"]),
+                fd["library_ms"], plan=fd["plan"], tensor_call_ms=fd["tensor_call_ms"],
+                more_shapes={key: {"shape": row["shape"], "plan": row["plan"],
+                                   "max_abs_err": row["max_abs_err"], **timing(row),
+                                   "library_ms": row["library_ms"]}
+                             for key, row in fd_more.items()}),
         summary("fused_ffn", "fused_ffn.cu", "src/repro/kernels/fused_ffn.py:55",
                 by_path("fused_ffn"), ffn_p, ffn_p["max_abs_err"], timing(ffn_p),
                 ffn_p["library_ms"], library_covers=ffn_p["library_covers"],

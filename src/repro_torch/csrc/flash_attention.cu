@@ -35,7 +35,8 @@
 //   * Operands come through ldmatrix (`mma_tile.cuh`, shared with K2): Q's A
 //     fragments once, into registers, at every D; K's B fragments by plain
 //     ldmatrix, one x4 load for two mma; V's by ldmatrix.trans.
-//   * Masks only where a tile needs one (`softmax_step<MASK>`): the causal
+//   * Masks only where a tile needs one (`softmax_step<MASK>`, in
+//     `mma_tile.cuh`, shared with K3): the causal
 //     mask on the tile that crosses the diagonal, the length mask on the
 //     ragged last tile; every other tile takes no index computation, compare
 //     or select per score.
@@ -64,8 +65,6 @@
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int BN = 64;                    // keys per KV tile
 constexpr int MMA_WARPS = 4;              // bf16: 16 query rows a warp
@@ -83,64 +82,6 @@ constexpr size_t fwd_smem() {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One KV tile's online-softmax step for the thread's rows row_a and row_a + 8.
-// s holds the tile's Q K^T (C fragments) and leaves as P; m_run (log2 units)
-// and l_run (this thread's share of the row sum) are updated and acc
-// rescaled. With MASK, keys at or beyond Skv and (causal) keys above the row
-// get NEG_INF; col0 is the key of s[0][0].
-template <bool MASK, int NT, int D>
-__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&acc)[D / 8][4],
-                                             float (&m_run)[2], float (&l_run)[2],
-                                             float scale_log2, int row_a, int col0, int Skv,
-                                             int causal) {
-  float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[nt][e] * scale_log2;
-      if (MASK) {
-        const int col = col0 + nt * 8 + (e & 1), row = row_a + (e >> 1) * 8;
-        if (col >= Skv || (causal && col > row)) x = NEG_INF;
-      }
-      s[nt][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m_run[r], mx[r]);
-    alpha[r] = ex2(m_run[r] - m_new);
-    m_run[r] = m_new;
-  }
-  float psum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = ex2(s[nt][e] - m_run[e >> 1]);
-      s[nt][e] = p;
-      psum[e >> 1] += p;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    acc[i][0] *= alpha[0]; acc[i][1] *= alpha[0];
-    acc[i][2] *= alpha[1]; acc[i][3] *= alpha[1];
-  }
-}
 
 // In the mma fragment layout thread (g = lane/4, t = lane%4) of warp w holds
 // query rows 16w + g and 16w + g + 8 of the block's tile.

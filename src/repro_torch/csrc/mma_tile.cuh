@@ -1,8 +1,9 @@
 // The bf16 fragment helpers of the hand-written attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): warp-level tensor-core
-// products (`mma.sync.m16n8k16`, bf16 operands, fp32 accumulate) on tiles in
-// shared memory, their operands through `ldmatrix`, and the `cp.async` copies
-// that fill those tiles. Included by the .cu files; not compiled on its own.
+// (flash_attention.cu, flash_attention_bwd.cu, flash_decode.cu): warp-level
+// tensor-core products (`mma.sync.m16n8k16`, bf16 operands, fp32 accumulate)
+// on tiles in shared memory, their operands through `ldmatrix`, the
+// `cp.async` copies that fill those tiles, and the forward kernels' online
+// softmax step. Included by the .cu files; not compiled on its own.
 //
 // Fragment layout (PTX ISA, m16n8k16): in a warp, thread (g = lane/4,
 // t = lane%4) holds C rows g and g+8, columns 2t and 2t+1 of each 8-column
@@ -73,19 +74,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // `ROWS` rows of D bf16 into shared memory with row stride LD, by cp.async
-// from the block's THREADS threads: row r of the tile is row row0 + r of a
-// (S, heads, D) slab, head `head`; rows at or beyond S arrive as zeros.
-template <int D, int LD, int ROWS, int THREADS = 128>
-__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              int row0, int S, int heads, int head) {
+// from THREADS threads, this one number `tid` of them: row r of the tile is
+// row row0 + r of a (S, heads, D) slab, head `head` (rows heads * D apart);
+// rows at or beyond S arrive as zeros.
+template <int D, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              int row0, int S, int heads, int head, int tid) {
   constexpr int CHUNKS = D / 8;
   static_assert((ROWS * CHUNKS) % THREADS == 0, "whole rounds of 16-byte pieces");
 #pragma unroll
   for (int j = 0; j < ROWS * CHUNKS / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS, r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const int i = tid + j * THREADS, r = i / CHUNKS, c = (i % CHUNKS) * 8;
     const bool ok = row0 + r < S;
     cp_async16(dst + r * LD + c, src + ((size_t)(ok ? row0 + r : 0) * heads + head) * D + c, ok);
   }
+}
+
+// The same by the block's THREADS threads.
+template <int D, int LD, int ROWS, int THREADS = 128>
+__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              int row0, int S, int heads, int head) {
+  cp_async_rows<D, LD, ROWS, THREADS>(dst, src, row0, S, heads, head, threadIdx.x);
 }
 
 // The A fragment of columns [16kk, 16kk + 16) of the 16 rows at `rows` (a
@@ -163,6 +172,71 @@ __device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4], const float (&x)[
       mma_bf16_16816(acc[2 * dt], xa, bf[0], bf[1]);
       mma_bf16_16816(acc[2 * dt + 1], xa, bf[2], bf[3]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward kernels' online softmax (flash_attention.cu, flash_decode.cu)
+// ---------------------------------------------------------------------------
+
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One KV tile's online-softmax step for the thread's rows row_a and row_a + 8.
+// s holds the tile's Q K^T (C fragments) and leaves as P; m_run (log2 units)
+// and l_run (this thread's share of the row sum) are updated and acc
+// rescaled. With MASK, keys at or beyond Skv and (causal) keys above the row
+// get NEG_INF; col0 is the key of s[0][0].
+template <bool MASK, int NT, int D>
+__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&acc)[D / 8][4],
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             float scale_log2, int row_a, int col0, int Skv,
+                                             int causal) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[nt][e] * scale_log2;
+      if (MASK) {
+        const int col = col0 + nt * 8 + (e & 1), row = row_a + (e >> 1) * 8;
+        if (col >= Skv || (causal && col > row)) x = NEG_INF;
+      }
+      s[nt][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    alpha[r] = ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(s[nt][e] - m_run[e >> 1]);
+      s[nt][e] = p;
+      psum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] *= alpha[0]; acc[i][1] *= alpha[0];
+    acc[i][2] *= alpha[1]; acc[i][3] *= alpha[1];
   }
 }
 

@@ -124,12 +124,15 @@ def load_library() -> ctypes.CDLL:
     #  int* max_clusters)
     lib.flash_attention_bwd_dkv_max_clusters.argtypes = [i32] * 12 + [ptr]
     lib.flash_attention_bwd_dkv_max_clusters.restype = i32
-    # (q, k, v, out, partial, B, S, H, KVH, D, kv_len, n_splits, split_len,
-    #  scale, is_bf16, stream)
+    # (q, k, v, out, int* kv_len or NULL, kv_len, B, S, H, KVH, D, scale,
+    #  is_bf16, tile, cluster, grid x, device, stream): the plan of `decode_plan`
     lib.flash_decode_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                     i32, i32, i32, i32, i32, i32, i32, i32,
-                                     f32, i32, ptr]
+                                     i32, i32, i32, i32, i32, i32,
+                                     f32, i32, i32, i32, i32, i32, ptr]
     lib.flash_decode_fwd.restype = i32
+    # (B, S, H, KVH, D, is_bf16, tile, cluster, grid x, device, int* max_clusters)
+    lib.flash_decode_max_clusters.argtypes = [i32] * 10 + [ptr]
+    lib.flash_decode_max_clusters.restype = i32
     # (x, dt, A, b, c, y, state, B, S, H, P, N, is_bf16, stream)
     lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                  i32, i32, i32, i32, i32, i32, ptr]

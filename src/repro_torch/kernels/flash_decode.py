@@ -1,29 +1,52 @@
-"""flash_decode: the wrapper of the split-KV CUDA kernels in
+"""flash_decode: the wrapper of the one-launch CUDA kernel in
 ``csrc/flash_decode.cu``, and the plain PyTorch version beside it.
 
-    q (B,H,D), k/v (B,S,KVH,D), kv_len (host int) -> out (B,H,D)
+    q (B,H,D), k/v (B,S,KVH,D), kv_len -> out (B,H,D)
 
 One query token per sequence against a cache whose first ``kv_len``
-positions are valid. ``flash_decode`` takes CUDA tensors only and launches
-the kernels (partial, then combine) or raises. The kernel keeps the softmax
-weights in fp32 for the product with V; the model path's
-``decode_attention`` rounds them to the cache dtype first, so the two agree
-to bf16 rounding with a bf16 cache, not exactly.
+positions are valid. ``kv_len`` is a host int, or a one-element integer
+tensor, as the reference's ``flash_decode_pallas`` takes a scalar int32
+array. ``flash_decode`` takes CUDA tensors only and launches the kernel, one
+launch a call, or raises; there its ``kv_len`` tensor is int32 on q's device
+and is read by the kernel, never by the host (a read would wait for the
+device), so one captured CUDA graph serves every position. The kernel rounds
+the softmax weights to bf16 for the product with V when the cache is bf16;
+the plain version keeps them fp32, so the two agree to bf16 rounding.
+
+``decode_plan`` is the host-side plan the kernel is launched with: the grid
+(one thread-block cluster per (b, KV head, 16-row fragment of the group's
+query heads)), the cluster size and the key tile, sized over the cache length
+S and never over ``kv_len``. ``decode_walk`` restates in Python the tiles
+each (rank, warp) of a cluster visits and which of them it masks; the CPU
+tests hold that statement, and only ``chip_smoke.py`` holds the kernel
+itself, against the plain version on the card.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-TILE_KV = 64            # keys per tile in the CUDA source; a split is a whole number of tiles
-TARGET_BLOCKS = 264     # two blocks for each of an H100's 132 SMs
-MAX_SPLITS = 64
+HEAD_DIMS = (32, 64, 128)   # the kernel's instances
+WARPS = 4                   # warps a block, each walking its own tiles
+ROWS = 16                   # query heads a fragment (the mma's 16 rows)
+TILE_KEYS = 32              # keys a tile, both dtypes (fp32: one a lane)
+MAX_CLUSTER = 16            # 8 is portable; the card's occupancy query has the last word
+TARGET_BLOCKS = 264         # two blocks on each of an H100's 132 SMs
 
 
-def flash_decode_plain(q, k, v, kv_len: int, scale: float | None = None):
-    """Plain version, fp32 inside, masks the whole cache beyond ``kv_len``."""
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def flash_decode_plain(q, k, v, kv_len, scale: float | None = None):
+    """Plain version, fp32 inside, masks the whole cache beyond ``kv_len``
+    (a host int or a one-element tensor on q's device)."""
     b, h, d = q.shape
     _, s, kvh, _ = k.shape
     g = h // kvh
@@ -37,19 +60,62 @@ def flash_decode_plain(q, k, v, kv_len: int, scale: float | None = None):
     return out.reshape(b, h, v.shape[-1]).to(q.dtype)
 
 
-def split_plan(kv_len: int, n_groups: int) -> tuple[int, int]:
-    """``(n_splits, split_len)`` for ``n_groups = B*KVH`` independent
-    (sequence, KV head) pairs: enough splits to fill the card, each a whole
-    number of tiles and none empty."""
-    tiles = -(-kv_len // TILE_KV)
-    want = max(1, min(MAX_SPLITS, tiles, -(-TARGET_BLOCKS // n_groups)))
-    tiles_per_split = -(-tiles // want)
-    n_splits = -(-tiles // tiles_per_split)
-    return n_splits, tiles_per_split * TILE_KV
+@dataclass(frozen=True)
+class DecodePlan:
+    """How K3 is launched for one shape and dtype.
+
+    ``tile``: keys a tile; ``cluster``: blocks that share one (b, KV head,
+    fragment), each with ``warps`` warps; ``frags``: 16-row fragments of the
+    G query heads; ``tiles``: tiles in the cache of ``s`` positions;
+    ``grid``: the CUDA grid, one cluster per (b, KV head, fragment). Tile t
+    belongs to rank t mod c and, within it, to warp (t // c) mod warps
+    (``decode_walk``)."""
+    s: int
+    tile: int
+    warps: int
+    cluster: int
+    frags: int
+    grid: tuple[int, int, int]
+
+    @property
+    def tiles(self) -> int:
+        return cdiv(self.s, self.tile)
+
+    def summary(self) -> dict:
+        return {"tile": self.tile, "warps": self.warps, "cluster": self.cluster,
+                "frags": self.frags, "grid": list(self.grid)}
 
 
-def check_inputs(q, k, v, kv_len: int) -> None:
-    """What both versions require of their arguments."""
+@functools.lru_cache(maxsize=None)
+def decode_plan(b: int, kvh: int, g: int, s: int, d: int, dtype,
+                max_cluster: int = MAX_CLUSTER) -> DecodePlan:
+    """The plan for q (b, kvh * g, d), k/v (b, s, kvh, d) of ``dtype``:
+    clusters of c blocks with c as large as fills about TARGET_BLOCKS blocks,
+    at most ``max_cluster`` and at most one block for every WARPS tiles of the
+    cache. It depends on s, never on kv_len; d and dtype pick the kernel
+    instance, not the plan."""
+    tile = TILE_KEYS
+    frags = cdiv(g, ROWS)
+    clusters = b * kvh * frags
+    tiles = cdiv(s, tile)
+    c = max(1, min(TARGET_BLOCKS // clusters, max_cluster, cdiv(tiles, WARPS)))
+    return DecodePlan(s, tile, WARPS, c, frags, (clusters * c, 1, 1))
+
+
+def decode_walk(plan: DecodePlan, rank: int, warp: int, kv_len: int) -> list[tuple[int, bool]]:
+    """The tiles warp ``warp`` of cluster rank ``rank`` visits, in order, each
+    as (first key, masked): tiles rank + c (warp + WARPS j) that hold a key
+    below ``kv_len``. Only the tile that holds kv_len (when kv_len is not a
+    multiple of the tile) is masked; keys at or beyond kv_len load as zeros."""
+    t = plan.tile
+    return [(n0, n0 + t > kv_len) for n0 in range((rank + plan.cluster * warp) * t, kv_len,
+                                                  plan.cluster * plan.warps * t)]
+
+
+def check_inputs(q, k, v, kv_len) -> None:
+    """What both versions require of their arguments. A tensor ``kv_len`` is
+    one integer; on the CPU its value is checked too (reading it costs no
+    wait), on the card it is the caller's contract (1 <= kv_len <= S)."""
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q must be (B,H,D) and k, v (B,S,KVH,D)")
     b, h, d = q.shape
@@ -59,37 +125,77 @@ def check_inputs(q, k, v, kv_len: int) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree in batch or head dim")
     if h % k.shape[2] != 0:
         raise ValueError(f"{h} query heads are no multiple of {k.shape[2]} KV heads")
-    if not isinstance(kv_len, int):
-        raise TypeError("kv_len is a host integer (the caller knows the position; "
-                        "reading it from a tensor would wait for the device)")
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.dtype.is_floating_point or kv_len.dtype.is_complex or kv_len.dtype == torch.bool:
+            raise TypeError(f"kv_len is an integer tensor, not {kv_len.dtype}")
+        if kv_len.numel() != 1 or kv_len.dim() > 1:
+            raise ValueError(f"kv_len is one integer, not a tensor of shape {tuple(kv_len.shape)}")
+        if kv_len.device != q.device:
+            raise ValueError(f"kv_len is on {kv_len.device}, q on {q.device}")
+        if kv_len.is_cuda:
+            return
+        kv_len = int(kv_len)
+    elif not isinstance(kv_len, int):
+        raise TypeError("kv_len is a host integer or a one-element integer tensor")
     if not 1 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[1]}]")
 
 
-def flash_decode(q, k, v, kv_len: int, scale: float | None = None):
-    """Launches the CUDA kernels on the current stream. CUDA tensors, bf16 or
-    fp32, contiguous, head dim a multiple of 8."""
+def max_active_clusters(plan: DecodePlan, b: int, h: int, kvh: int, d: int, dtype,
+                        device: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the launch of ``plan``: how many
+    of its clusters the card holds at once."""
+    out = ctypes.c_int(0)
+    lib = build.load_library()
+    code = lib.flash_decode_max_clusters(b, plan.s, h, kvh, d, int(dtype == torch.bfloat16),
+                                         plan.tile, plan.cluster, plan.grid[0], device,
+                                         ctypes.byref(out))
+    build.check(lib, code, "flash_decode_max_clusters")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(device: int, b: int, h: int, kvh: int, s: int, d: int, dtype) -> DecodePlan:
+    """``decode_plan`` with its cluster shrunk, a block at a time, until the
+    card holds all of the launch's clusters at once (one wave): a launch of
+    32 clusters of 8 where 30 fit would take two. Queried once a shape."""
+    plan = decode_plan(b, kvh, h // kvh, s, d, dtype)
+    while plan.cluster > 1 and (max_active_clusters(plan, b, h, kvh, d, dtype, device)
+                                < plan.grid[0] // plan.cluster):
+        plan = decode_plan(b, kvh, h // kvh, s, d, dtype, plan.cluster - 1)
+    return plan
+
+
+def flash_decode(q, k, v, kv_len, scale: float | None = None):
+    """Launches the CUDA kernel on the current stream. CUDA tensors, bf16 or
+    fp32, contiguous, head dim 32, 64 or 128. ``kv_len``: a host int in
+    [1, S], or a one-element int32 tensor on q's device holding a value in
+    [1, S] (the kernel reads it; a value outside is clamped into [1, S])."""
     check_inputs(q, k, v, kv_len)
     build.refuse_grad("flash_decode", q, k, v)
     build.check_cuda_tensors(q=q, k=k, v=v)
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    if d % 8:
-        raise ValueError(f"head dim {d} must be a multiple of 8")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported {HEAD_DIMS}")
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.dtype != torch.int32:
+            raise TypeError(f"the kernel reads kv_len as int32, not {kv_len.dtype}")
+        len_ptr, len_host = kv_len.data_ptr(), 0
+    else:
+        len_ptr, len_host = None, kv_len
     scale = scale if scale is not None else d ** -0.5
-    n_splits, split_len = split_plan(kv_len, b * kvh)
+    device = q.device.index
+    plan = launch_plan(device, b, h, kvh, s, d, q.dtype)
     out = torch.empty_like(q)
-    partial = torch.empty((b * kvh, n_splits, h // kvh, d + 2),
-                          dtype=torch.float32, device=q.device)
     lib = build.load_library()
-    with torch.cuda.device(q.device):
-        code = lib.flash_decode_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            b, s, h, kvh, d, kv_len, n_splits, split_len, float(scale),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    code = lib.flash_decode_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), len_ptr, len_host,
+        b, s, h, kvh, d, float(scale), int(q.dtype == torch.bfloat16), plan.tile,
+        plan.cluster, plan.grid[0], device, torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, code, "flash_decode")
     flash_decode.launches += 1
     return out
 
 
-flash_decode.launches = 0       # calls that launched the kernels
+flash_decode.launches = 0       # calls that launched the kernel

@@ -50,9 +50,10 @@ def flash_attention_op(q, k, v, *, causal: bool = True, scale=None):
     return FlashAttentionFn.apply(q, k, v, causal, scale)
 
 
-def flash_decode_op(q, k, v, kv_len: int, *, scale=None):
-    """q (B,H,D), k/v (B,S,KVH,D), kv_len host int -> (B,H,D). Forward only:
-    the decode path runs under ``no_grad``."""
+def flash_decode_op(q, k, v, kv_len, *, scale=None):
+    """q (B,H,D), k/v (B,S,KVH,D), kv_len (a host int, or a one-element
+    integer tensor on q's device; int32 on the card) -> (B,H,D). Forward
+    only: the decode path runs under ``no_grad``."""
     if q.is_cuda:
         return flash_decode(q, k, v, kv_len, scale=scale)
     _check_decode(q, k, v, kv_len)

@@ -14,7 +14,7 @@ from repro.kernels.flash_decode import flash_decode_pallas
 from repro.models.attention import naive_attention as jax_naive_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.flash_decode import flash_decode_plain, split_plan, TILE_KV
+from repro_torch.kernels.flash_decode import flash_decode_plain
 
 # the tolerances of tests/test_kernels.py:14; bf16 carries ~3 decimal digits
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -147,6 +147,20 @@ def test_flash_decode_vs_pallas_and_ref(b, h, kvh, d, s, kv_len, bk, dtype):
     np.testing.assert_array_equal(f32(ops.flash_decode_op(qt, kt, vt, kv_len)), f32(got))
 
 
+@pytest.mark.parametrize("b,h,kvh,d,s,kv_len,bk", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_tensor_kv_len_vs_pallas(b, h, kvh, d, s, kv_len, bk, dtype):
+    """kv_len as a tensor, the form the reference's kernel reads from SMEM:
+    through the dispatch it equals the host-int form bit for bit and the
+    Pallas kernel given ``jnp.int32(kv_len)``."""
+    (qj, qt), (kj, kt), (vj, vt) = decode_inputs(4, b, h, kvh, d, s, dtype)
+    got = ops.flash_decode_op(qt, kt, vt, torch.tensor([kv_len], dtype=torch.int32))
+    np.testing.assert_array_equal(f32(got), f32(ops.flash_decode_op(qt, kt, vt, kv_len)))
+    pallas = flash_decode_pallas(qj, kj, vj, jnp.int32(kv_len), block_kv=bk, interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(f32(got), f32(pallas), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("kv_len", [1, 63, 700, 1000])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_ragged_cache(kv_len, dtype):
@@ -161,21 +175,17 @@ def test_flash_decode_ragged_cache(kv_len, dtype):
 
 
 def test_flash_decode_refuses_bad_kv_len():
+    """Out of [1, S] as a host int or a CPU tensor, a float, a float tensor or
+    a tensor of more than one element is refused; a one-element int tensor
+    is taken, as the reference takes an array."""
     (_, qt), (_, kt), (_, vt) = decode_inputs(6, 1, 4, 2, 32, 64, "float32")
-    for bad in (0, 65):
+    for bad in (0, 65, torch.tensor(0), torch.tensor([65], dtype=torch.int32)):
         with pytest.raises(ValueError, match="kv_len"):
             ops.flash_decode_op(qt, kt, vt, bad)
-    with pytest.raises(TypeError, match="host integer"):
-        ops.flash_decode_op(qt, kt, vt, torch.tensor(3))
-
-
-@pytest.mark.parametrize("n_groups", [1, 4, 16, 32, 512])
-@pytest.mark.parametrize("kv_len", [1, 63, 64, 65, 543, 700, 2048, 32768])
-def test_split_plan_covers_the_cache_with_no_empty_split(kv_len, n_groups):
-    """The host-side plan the CUDA kernel relies on: whole tiles, every split
-    non-empty, all of [0, kv_len) covered."""
-    n_splits, split_len = split_plan(kv_len, n_groups)
-    assert n_splits >= 1 and split_len % TILE_KV == 0
-    assert (n_splits - 1) * split_len < kv_len <= n_splits * split_len
-    if kv_len <= TILE_KV:
-        assert n_splits == 1
+    for bad in (3.0, torch.tensor(3.0)):
+        with pytest.raises(TypeError, match="integer"):
+            ops.flash_decode_op(qt, kt, vt, bad)
+    with pytest.raises(ValueError, match="one integer"):
+        ops.flash_decode_op(qt, kt, vt, torch.tensor([3, 4]))
+    assert torch.equal(ops.flash_decode_op(qt, kt, vt, torch.tensor(3)),
+                       ops.flash_decode_op(qt, kt, vt, 3))
