@@ -8,7 +8,8 @@ Phases, one JSON object a line:
   build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
            with each kernel's registers and spill bytes as ptxas reports them
            (template instances named by their arguments, e.g.
-           attn_bwd_dkv_mma<128,32>); K3's bf16 instances must not spill
+           attn_bwd_dkv_mma<128,32>); K3's bf16 instances and K5's mma
+           instances must not spill
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
            training shape, with its plan
   checks   every kernel against its plain PyTorch version on the card, over
@@ -42,15 +43,19 @@ Phases, one JSON object a line:
            row's own, both timed at T=2048 and T=256), with the route and
            h's chunk rows; K5 ssd_scan at the prefill shape (N=64; again with
            Mamba-2's small dt, bf16 and fp32, so the state carries across
-           chunks), mamba2-1.3b's N=128, S=333, S=1 and fp32 shapes, y and
-           final state; bf16 outputs held elementwise and by relative norm;
+           chunks), mamba2-1.3b's N=128, a long prompt (B=1 S=8192), S=333,
+           S=1 and fp32 shapes, y and final state, every bf16 shape on both
+           routes (mma and fma; the route ssd_plan picks is the row's own;
+           both timed at the prefill shape, N=128 and S=8192); bf16 outputs
+           held elementwise and by relative norm;
            each launched twice and required bit-identical; K4's allocation
            at T=2048 and T=8192 held below one (T x F) bf16 tensor and to
            16 MiB + 1 MiB
   serve_hybrid  zamba2-1.2b at full width and depth (38 Mamba-2 blocks, 6
            calls of the shared attention + MLP block), bf16, seeded random
            weights, impl="kernel" with fused_ffn: the prefill step on 4 x 512
-           prompts (K5 38, K1 6, K4 6 launches, all on the tiled route) and
+           prompts (K5 38 launches, all on the mma route, K1 6, K4 6, all on
+           the tiled route) and
            `generate` for 16 greedy steps (K3 and K4 6 x 527 each, K4 on the
            row-tile route), against impl="naive" without
            fused_ffn on the same weights; layer 0's SSM state after 512
@@ -68,7 +73,8 @@ Phases, one JSON object a line:
            time, plain time, bound and the library call's time; K1 and K2
            also at S=4096 and D=128, K3 with its plan and at its three other
            timed shapes (`more_shapes`); K4 also its launches by
-           route and both routes' times at T=2048 and T=256
+           route and both routes' times at T=2048 and T=256; K5 its launches
+           by route and both routes' times at its three timed shapes
 then the card's name and power limit, then {"ok": true, "device": ...}.
 Any failed phase raises: the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
@@ -126,6 +132,7 @@ BF16_REL_NORM = 1e-2
 # state carries across K5's 64-token chunks (exp(sum dt A) ~ 0.2 a chunk);
 # at dt = softplus(N(0, 1)) it has decayed within a few tokens.
 SSD_SMALL_DT = (1e-3, 1e-1)
+SSD_LONG_S = 8192          # K5 timed on one long prompt (B=1) at zamba2-1.2b's heads
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
 # kernel path against naive path on the card, bf16: each gradient leaf's
 # relative norm error, and the first step's loss. Both bf16 paths are 1-3 %
@@ -684,7 +691,7 @@ def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False, both_route
 
 
 def routes_ms(row) -> dict:
-    """Device ms of both K4 routes from a row checked with ``both_routes``."""
+    """Device ms of both routes (K4 or K5) from a row checked with ``both_routes``."""
     return {row["route"]: row["kernel_ms"], row["other_route"]["route"]: row["other_route"]["kernel_ms"]}
 
 
@@ -696,11 +703,21 @@ def ssd_flops(b, s, h, p, n) -> int:
     return b * h * chunks * 2 * L * (L * n + L * p + 2 * n * p)
 
 
-def check_ssd_scan(gen, *, b, s, h, p, n, dtype, timed=False, dt_range=None) -> dict:
+def ssd_mma_flops(b, s, h, p, n) -> int:
+    """What K5's mma route does: ``ssd_flops`` and the state update's lo term
+    (W^T x once more)."""
+    from repro_torch.kernels.ssd_scan import CHUNK as L
+    return ssd_flops(b, s, h, p, n) + b * h * -(-s // L) * 2 * L * n * p
+
+
+def check_ssd_scan(gen, *, b, s, h, p, n, dtype, timed=False, dt_range=None,
+                   both_routes=False) -> dict:
     """K5 against its plain version (y and the final state), twice on the
-    same inputs (bit-identical). Inputs at the model's scales: A = -exp(.) per
-    head, dt a softplus of N(0, 1) or, with ``dt_range``, log-uniform in it."""
-    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan, ssd_scan_plain
+    same inputs (bit-identical), on the route ``ssd_plan`` picks and, with
+    ``both_routes``, on the other one (``other_route``), timed too where
+    ``timed``. Inputs at the model's scales: A = -exp(.) per head, dt a
+    softplus of N(0, 1) or, with ``dt_range``, log-uniform in it."""
+    from repro_torch.kernels.ssd_scan import CHUNK, ROUTES, ssd_plan, ssd_scan, ssd_scan_plain
 
     x = (randn(gen, (b, s, h, p), torch.float32) * 0.5).to(dtype)
     if dt_range is None:
@@ -711,15 +728,28 @@ def check_ssd_scan(gen, *, b, s, h, p, n, dtype, timed=False, dt_range=None) -> 
     a = -torch.exp(randn(gen, (h,), torch.float32) * 0.3)
     bm = (randn(gen, (b, s, n), torch.float32) * 0.3).to(dtype)
     cm = (randn(gen, (b, s, n), torch.float32) * 0.3).to(dtype)
-    y, st = ssd_scan(x, dt, a, bm, cm)
-    y2, st2 = ssd_scan(x, dt, a, bm, cm)
-    torch.cuda.synchronize()
     want_y, want_st = ssd_scan_plain(x, dt, a, bm, cm)
     atol, rtol = SSD_TOL[dtype]
     st_atol, st_rtol = SSD_TOL[torch.float32]
     rel_norm = BF16_REL_NORM if dtype == torch.bfloat16 else None
-    y_err = held("ssd_scan y", y, want_y, atol, rtol, rel_norm)
-    st_err = held("ssd_scan state", st, want_st, st_atol, st_rtol)
+    route = ssd_plan(dtype, p, n)
+
+    def on(r) -> dict:
+        y, st = ssd_scan(x, dt, a, bm, cm, route=r)
+        y2, st2 = ssd_scan(x, dt, a, bm, cm, route=r)
+        torch.cuda.synchronize()
+        y_err = held(f"ssd_scan y ({r})", y, want_y, atol, rtol, rel_norm)
+        st_err = held(f"ssd_scan state ({r})", st, want_st, st_atol, st_rtol)
+        res = {**y_err, "state_max_abs_err": st_err["max_abs_err"],
+               "state_rel_norm_err": st_err["rel_norm_err"],
+               "bit_identical": bool(torch.equal(y, y2) and torch.equal(st, st2))}
+        if not res["bit_identical"]:
+            raise AssertionError(f"ssd_scan ({r}): two launches on the same inputs differ")
+        if timed:
+            res.update(kernel_ms=device_ms(lambda: ssd_scan(x, dt, a, bm, cm, route=r)),
+                       call_ms=call_ms(lambda: ssd_scan(x, dt, a, bm, cm, route=r)))
+        return res
+
     row = {"kernel": "ssd_scan",
            "shape": {"B": b, "S": s, "H": h, "P": p, "N": n, "dtype": str(dtype).split(".")[-1]},
            "dt": "softplus(N(0,1))" if dt_range is None else f"log-uniform {list(dt_range)}",
@@ -727,25 +757,22 @@ def check_ssd_scan(gen, *, b, s, h, p, n, dtype, timed=False, dt_range=None) -> 
            "chunk_carry_mean": float(torch.exp(dt[:, :CHUNK].sum(1) * a).mean()),
            "tol": {"y": {"atol": atol, "rtol": rtol, "rel_norm": rel_norm},
                    "state": {"atol": st_atol, "rtol": st_rtol}},
-           **y_err,
-           "state_max_abs_err": st_err["max_abs_err"],
-           "state_rel_norm_err": st_err["rel_norm_err"],
-           "bit_identical": bool(torch.equal(y, y2) and torch.equal(st, st2))}
-    if not row["bit_identical"]:
-        raise AssertionError("ssd_scan: two launches on the same inputs differ")
+           "route": route, **on(route)}
+    if both_routes:
+        other = next(r for r in ROUTES if r != route)
+        row["other_route"] = {"route": other, **on(other)}
     if timed:
         # each input read once, y and the final state written once
         nbytes = (x.element_size() * (2 * x.numel() + bm.numel() + cm.numel())
-                  + 4 * (dt.numel() + a.numel() + st.numel()))
+                  + 4 * (dt.numel() + a.numel() + want_st.numel()))
         flops = ssd_flops(b, s, h, p, n)
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         row.update(
-            kernel_ms=device_ms(lambda: ssd_scan(x, dt, a, bm, cm)),
-            call_ms=call_ms(lambda: ssd_scan(x, dt, a, bm, cm)),
             plain_ms=device_ms(lambda: ssd_scan_plain(x, dt, a, bm, cm), launches=3),
             library_ms=None,
             library_none_because="no single PyTorch call computes the SSD scan",
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+            mma_flops=ssd_mma_flops(b, s, h, p, n))
     return row
 
 
@@ -765,7 +792,15 @@ def phase_hybrid_checks(cfg, ssm_cfg) -> dict:
         "ffn_threshold": check_fused_ffn(gen, t=TILED_MIN_T, d=d, f=f, dtype=bf16, timed=True,
                                          both_routes=True),
         "ssd_prefill": check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads,
-                                      p=cfg.ssm_head_dim, n=cfg.ssm_state, dtype=bf16, timed=True),
+                                      p=cfg.ssm_head_dim, n=cfg.ssm_state, dtype=bf16, timed=True,
+                                      both_routes=True),
+        # mamba2-1.3b's N=128
+        "ssd_n128": check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=ssm_cfg.ssm_heads,
+                                   p=ssm_cfg.ssm_head_dim, n=ssm_cfg.ssm_state, dtype=bf16,
+                                   timed=True, both_routes=True),
+        # a long prompt, what Mamba-2 is served for: B*H = 64 blocks, 128 chunks each
+        "ssd_long": check_ssd_scan(gen, b=1, s=SSD_LONG_S, h=cfg.ssm_heads, p=cfg.ssm_head_dim,
+                                   n=cfg.ssm_state, dtype=bf16, timed=True, both_routes=True),
     }
     others = [
         check_fused_ffn(gen, t=1025, d=d, f=f, dtype=bf16, both_routes=True),   # 2 chunks, ragged
@@ -779,13 +814,15 @@ def phase_hybrid_checks(cfg, ssm_cfg) -> dict:
         check_fused_ffn(gen, t=128, d=64, f=256, dtype=fp32),
         # the prefill shape with the state carried across chunks, bf16 and fp32
         check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads, p=cfg.ssm_head_dim,
-                       n=cfg.ssm_state, dtype=bf16, dt_range=SSD_SMALL_DT),
+                       n=cfg.ssm_state, dtype=bf16, dt_range=SSD_SMALL_DT, both_routes=True),
         check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=cfg.ssm_heads, p=cfg.ssm_head_dim,
                        n=cfg.ssm_state, dtype=fp32, dt_range=SSD_SMALL_DT),
         check_ssd_scan(gen, b=BATCH, s=PROMPT_LEN, h=ssm_cfg.ssm_heads, p=ssm_cfg.ssm_head_dim,
-                       n=ssm_cfg.ssm_state, dtype=bf16),                # mamba2-1.3b's N=128
-        check_ssd_scan(gen, b=2, s=333, h=8, p=64, n=64, dtype=bf16),   # no chunk multiple
-        check_ssd_scan(gen, b=2, s=1, h=8, p=64, n=64, dtype=bf16),
+                       n=ssm_cfg.ssm_state, dtype=bf16, dt_range=SSD_SMALL_DT,
+                       both_routes=True),                               # N=128, state carried
+        check_ssd_scan(gen, b=2, s=333, h=8, p=64, n=64, dtype=bf16,    # no chunk multiple
+                       both_routes=True),
+        check_ssd_scan(gen, b=2, s=1, h=8, p=64, n=64, dtype=bf16, both_routes=True),
         check_ssd_scan(gen, b=2, s=256, h=4, p=32, n=16, dtype=fp32),   # tests/test_kernels.py:77
         check_ssd_scan(gen, b=1, s=128, h=2, p=64, n=32, dtype=fp32),
         check_ssd_scan(gen, b=1, s=512, h=8, p=16, n=8, dtype=fp32),
@@ -925,6 +962,7 @@ def phase_serve_hybrid(cfg) -> dict:
         for c in counters:
             c.launches = 0
         fused_ffn.launches_by_route = dict.fromkeys(fused_ffn.launches_by_route, 0)
+        ssd_scan.launches_by_route = dict.fromkeys(ssd_scan.launches_by_route, 0)
 
     def counts():
         return {c.__name__: c.launches for c in counters}
@@ -944,6 +982,9 @@ def phase_serve_hybrid(cfg) -> dict:
     # K4's route: the prefill step's T = 2048 takes the tiled route, decode's T = 4 the row tiles
     want_by_route = {"prefill": {"tiled": n_shared, "rowtile": 0},
                      "generate": {"tiled": 0, "rowtile": n_shared * drive_steps}}
+    # K5's route: the prefill step's bf16 scan at N=64 takes the mma route
+    want_ssd_by_route = {"prefill": {"mma": cfg.n_layers, "fma": 0},
+                         "generate": {"mma": 0, "fma": 0}}
 
     def drive_hybrid(m):
         prefill = make_prefill_step(m)
@@ -954,6 +995,7 @@ def phase_serve_hybrid(cfg) -> dict:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         c_prefill, r_prefill = counts(), dict(fused_ffn.launches_by_route)
+        ssd_prefill = dict(ssd_scan.launches_by_route)
         reset()
         engine = ServingEngine(m, BATCH, MAX_LEN)
         toks = engine.generate(prompts, HYBRID_GEN_STEPS)
@@ -963,6 +1005,8 @@ def phase_serve_hybrid(cfg) -> dict:
                 "tokens": toks, "prefill_s": t1 - t0, "generate_s": t2 - t1,
                 "launches": {"prefill": c_prefill, "generate": counts()},
                 "by_route": {"prefill": r_prefill, "generate": dict(fused_ffn.launches_by_route)},
+                "ssd_by_route": {"prefill": ssd_prefill,
+                                 "generate": dict(ssd_scan.launches_by_route)},
                 "prefill": prefill, "engine": engine}
 
     torch.cuda.reset_peak_memory_stats()
@@ -975,6 +1019,9 @@ def phase_serve_hybrid(cfg) -> dict:
     if ker["by_route"] != want_by_route:
         raise AssertionError(f"fused_ffn launches by route {ker['by_route']}, expected "
                              f"{want_by_route}")
+    if ker["ssd_by_route"] != want_ssd_by_route:
+        raise AssertionError(f"ssd_scan launches by route {ker['ssd_by_route']}, expected "
+                             f"{want_ssd_by_route}")
     ref = drive_hybrid(naive)
     if any(v for step in ref["launches"].values() for v in step.values()):
         raise AssertionError(f"the naive path launched a kernel: {ref['launches']}")
@@ -1027,6 +1074,7 @@ def phase_serve_hybrid(cfg) -> dict:
            "fused_ffn": True, "batch": BATCH, "prompt_len": PROMPT_LEN,
            "gen_steps": HYBRID_GEN_STEPS, "max_len": MAX_LEN, "launches": launches,
            "fused_ffn_launches_by_route": ker["by_route"],
+           "ssd_scan_launches_by_route": ker["ssd_by_route"],
            "logit_max_abs_diff": errs,
            "tokens_equal_naive": bool(torch.equal(toks, ref["tokens"])),
            "layer0_state_max_abs_err": state_err,
@@ -1046,7 +1094,10 @@ def phase_serve_hybrid(cfg) -> dict:
            "max_memory_allocated_bytes": peak_bytes, "profile": profile}
     emit(row)
     by_route = {r: sum(step[r] for step in ker["by_route"].values()) for r in want_by_route["prefill"]}
-    return {k: launches["prefill"][k] + launches["generate"][k] for k in want_prefill}, by_route
+    ssd_by_route = {r: sum(step[r] for step in ker["ssd_by_route"].values())
+                    for r in want_ssd_by_route["prefill"]}
+    return ({k: launches["prefill"][k] + launches["generate"][k] for k in want_prefill},
+            by_route, ssd_by_route)
 
 
 # --------------------------------------------------------------------------------
@@ -1262,6 +1313,10 @@ def main() -> int:
     if len(k3_bf16) != 3 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                 for r in k3_bf16.values()):
         raise AssertionError(f"K3's bf16 instances must build without spills: {k3_bf16}")
+    k5_mma = {n: r for n, r in ptxas.items() if n.startswith("ssd_chunk_scan_mma")}
+    if len(k5_mma) != 6 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                               for r in k5_mma.values()):
+        raise AssertionError(f"K5's mma instances must build without spills: {k5_mma}")
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     emit(phase_occupancy(cfg))
@@ -1269,7 +1324,7 @@ def main() -> int:
     fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
-    hybrid_launches, ffn_by_route = phase_serve_hybrid(hybrid)
+    hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
     train_launches = phase_train(cfg)
 
     def timing(row):
@@ -1298,6 +1353,12 @@ def main() -> int:
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]
+    ssd_shapes = {key: {"shape": hyb[key]["shape"], "route": hyb[key]["route"],
+                        "max_abs_err": max(hyb[key]["max_abs_err"],
+                                           hyb[key]["state_max_abs_err"]),
+                        **timing(hyb[key]), "library_ms": None,
+                        "routes_ms": routes_ms(hyb[key])}
+                  for key in ("ssd_n128", "ssd_long")}
     emit({"kernels": [
         summary("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96",
                 by_path("flash_attention"),
@@ -1334,7 +1395,9 @@ def main() -> int:
                               "library_ms": ffn_d["library_ms"]}),
         summary("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:89",
                 by_path("ssd_scan"), ssd, max(ssd["max_abs_err"], ssd["state_max_abs_err"]),
-                timing(ssd), None, library_none_because=ssd["library_none_because"])]})
+                timing(ssd), None, library_none_because=ssd["library_none_because"],
+                kernel_route=ssd["route"], launches_by_route=ssd_by_route,
+                routes_ms=routes_ms(ssd), more_shapes=ssd_shapes)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

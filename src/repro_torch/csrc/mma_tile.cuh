@@ -1,5 +1,5 @@
-// The bf16 fragment helpers of the hand-written attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu, flash_decode.cu): warp-level
+// The bf16 fragment helpers of the hand-written tensor-core kernels
+// (flash_attention.cu, flash_attention_bwd.cu, flash_decode.cu, ssd_scan.cu): warp-level
 // tensor-core products (`mma.sync.m16n8k16`, bf16 operands, fp32 accumulate)
 // on tiles in shared memory, their operands through `ldmatrix`, the
 // `cp.async` copies that fill those tiles, and the forward kernels' online
@@ -106,6 +106,18 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* ro
   ldmatrix_x4(a, rows + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
 }
 
+// The A fragment of the transpose: rows [col0, col0 + 16) of T^T, its columns
+// [16kk, 16kk + 16), with T a row-major tile in shared memory (rows of T are
+// the k index). ldmatrix.trans hands each lane T[k][m], T[k+1][m] as A's
+// (m, k), (m, k+1): lanes 0-7 / 8-15 / 16-23 / 24-31 address rows 0-7 / 0-7 /
+// 8-15 / 8-15 of the slice at columns col0 / col0 + 8 / col0 / col0 + 8.
+template <int LD>
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4], const __nv_bfloat16* tile, int kk,
+                                             int col0, int lane) {
+  ldmatrix_x4_trans(a, tile + (kk * 16 + (lane % 8) + (lane / 16) * 8) * LD + col0 +
+                           ((lane / 8) & 1) * 8);
+}
+
 // c (16 x 8NT) += a . T^T for one 16-column slice kk: `a` the A fragment of
 // columns [16kk, 16kk + 16), T a row-major (8NT x D) tile in shared memory
 // whose rows are the n index, so its B fragments come straight from
@@ -151,6 +163,32 @@ __device__ __forceinline__ void mma_abt(float (&c)[NT][4], const __nv_bfloat16* 
   }
 }
 
+// acc (16 x D) += A . T for one 16-row slice kk of T: `a` the A fragment of
+// A's columns [16kk, 16kk + 16), T a row-major (rows: the k index, D columns)
+// tile in shared memory read through ldmatrix.trans.
+template <int D, int LD>
+__device__ __forceinline__ void mma_ab_slice(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                             const __nv_bfloat16* tile, int kk, int lane) {
+  const __nv_bfloat16* row =
+      tile + (kk * 16 + (lane % 8) + ((lane / 8) & 1) * 8) * LD + (lane / 16) * 8;
+#pragma unroll
+  for (int dt = 0; dt < D / 16; ++dt) {
+    uint32_t bf[4];
+    ldmatrix_x4_trans(bf, row + dt * 16);
+    mma_bf16_16816(acc[2 * dt], a, bf[0], bf[1]);
+    mma_bf16_16816(acc[2 * dt + 1], a, bf[2], bf[3]);
+  }
+}
+
+// acc (16 x D) += A (16 x 16KT, its KT fragments in registers) . T, T a
+// row-major (16KT x D) tile in shared memory.
+template <int D, int LD, int KT>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KT][4],
+                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) mma_ab_slice<D, LD>(acc, a[kk], tile, kk, lane);
+}
+
 // acc (16 x D) += X (16 x 16KT, C fragments in x, rounded to bf16 here) . T,
 // T a row-major (16KT x D) tile in shared memory read through ldmatrix.trans.
 template <int D, int LD, int KT>
@@ -163,15 +201,7 @@ __device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4], const float (&x)[
     xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
     xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
     xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const __nv_bfloat16* row =
-        tile + (kk * 16 + (lane % 8) + ((lane / 8) & 1) * 8) * LD + (lane / 16) * 8;
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, row + dt * 16);
-      mma_bf16_16816(acc[2 * dt], xa, bf[0], bf[1]);
-      mma_bf16_16816(acc[2 * dt + 1], xa, bf[2], bf[3]);
-    }
+    mma_ab_slice<D, LD>(acc, xa, tile, kk, lane);
   }
 }
 

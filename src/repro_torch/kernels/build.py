@@ -133,9 +133,9 @@ def load_library() -> ctypes.CDLL:
     # (B, S, H, KVH, D, is_bf16, tile, cluster, grid x, device, int* max_clusters)
     lib.flash_decode_max_clusters.argtypes = [i32] * 10 + [ptr]
     lib.flash_decode_max_clusters.restype = i32
-    # (x, dt, A, b, c, y, state, B, S, H, P, N, is_bf16, stream)
+    # (x, dt, A, b, c, y, state, B, S, H, P, N, is_bf16, route_mma, stream)
     lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                 i32, i32, i32, i32, i32, i32, ptr]
+                                 i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.ssd_scan_fwd.restype = i32
     # (x, w_gate, w_up, w_down, y, partial or NULL, T, D, F, n_splits,
     #  f_tiles_per_split, is_bf16, stream)
