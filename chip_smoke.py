@@ -29,12 +29,18 @@ Phases, one JSON object a line:
            G=6 and G=16, K2b's clusters of 6 and of 8 blocks walking 2 heads),
            each K1 and K2 launch repeated and required to agree bit for bit,
            each K2 row with its plan (tiles, cluster size); K1 and K2 also
-           timed at S=4096 (B=1) and at D=128 (yi-6b's heads, B=2, S=1024)
+           timed at S=4096 (B=1) and at D=128 (yi-6b's heads, B=2, S=1024);
+           K1 and K3 also timed at the two D=128 models' serving shapes
+           (internvl2-26b G=6, qwen3-moe-235b-a22b G=16: prefill B=4 S=512,
+           decode kv_len 527)
   serve    tinyllama-1.1b at full width and depth, bf16, seeded random
            weights: one 512-token prefill through `forward` (flash_attention)
            and `ServingEngine.generate` for 32 greedy steps (flash_decode at
            every layer of every step), with the launch counts the path must
-           show, and the same two steps through impl="naive" as the reference
+           show, and the same two steps through impl="naive" as the reference;
+           two kernel-path drives equal to the bit; times (host clock,
+           CUDA-graph replay) and a torch.profiler breakdown of one prefill
+           step and one decode step
   checks   (hybrid path) K4 fused_ffn at zamba2-1.2b's prefill (T=2048) and
            decode (T=4) shapes, the tiled route's threshold T=256, T=1025
            (two row chunks of h, the second ragged), T=8192 (eight chunks),
@@ -69,10 +75,32 @@ Phases, one JSON object a line:
            K2b once per layer and step), with the losses, step times (host
            clock, and one step replayed as a CUDA graph), tokens/s, MFU and
            peak memory
-  kernels  the summary line: per kernel its launches on each path, error,
+  serve_vlm  internvl2-26b at full width and depth (48 layers, d 6144, GQA at
+           H=48 KVH=8 D=128), bf16, seeded random weights: the prefill step on
+           4 x 512 prompts with 256 seeded patch embeddings (K1 48) and without
+           them, and `generate` for 16 greedy steps (K3 48 x 527), against
+           impl="naive" on the same weights; the engine (token ids only, as
+           the reference's) against the prefill step without patches
+  serve_moe  qwen3-moe-235b-a22b at full width (d 4096, 128 experts, top-8,
+           GQA at H=64 KVH=4 D=128) and 6 of its 94 layers, bf16: the prefill
+           step (K1 6) and `generate` for 16 steps (K3 6 x 527), against
+           impl="naive" sending each token to the experts the kernel path
+           chose (the naive path's own picks recorded: the share of routing
+           decisions that agree), the (token, expert) assignments capacity
+           drops in the prefill; the bf16 logits held kernel against naive,
+           and the engine against a prefill step that drops nothing and
+           routes as the engine's prompt steps did; then 2 layers in fp32,
+           each path routing for itself, kernel against naive logits held
+           at 1e-4.
+           Both rows: device ms (graph replay) and eager ms of the prefill
+           and decode steps, idle shares, a torch.profiler breakdown of each
+           step, peak memory (after init and while driving), phase seconds
+  kernels  the summary line: per kernel its launches on each path (serve,
+           serve_hybrid, serve_vlm, serve_moe, train), error,
            time, plain time, bound and the library call's time; K1 and K2
-           also at S=4096 and D=128, K3 with its plan and at its three other
-           timed shapes (`more_shapes`); K4 also its launches by
+           also at S=4096 and D=128, K1 also at the two D=128 models' prefill,
+           K3 with its plan and at its five other timed shapes
+           (`more_shapes`); K4 also its launches by
            route and both routes' times at T=2048 and T=256; K5 its launches
            by route and both routes' times at its three timed shapes
 then the card's name and power limit, then {"ok": true, "device": ...}.
@@ -82,6 +110,8 @@ Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -114,6 +144,13 @@ ARCH, BATCH, PROMPT_LEN, GEN_STEPS, MAX_LEN = "tinyllama-1.1b", 4, 512, 32, 1024
 WIDE_ARCH = "yi-6b"        # K2 timed at its heads: H=32, KVH=4, D=128
 LONG_ARCH = "mistral-nemo-12b"   # K3 timed at its heads over a 32k cache: H=32, KVH=8, D=128
 HYBRID_ARCH, HYBRID_GEN_STEPS = "zamba2-1.2b", 16
+VLM_ARCH, MOE_ARCH, FAMILY_GEN_STEPS = "internvl2-26b", "qwen3-moe-235b-a22b", 16
+VLM_PATCHES = 256          # the reference's patch positions for a vlm (launch/specs.py)
+# qwen3-moe-235b-a22b at full width, cut in depth to fit one 80 GB card: 6 of
+# its 94 layers in bf16 (16.2 B parameters), 2 in fp32 (6.2 B)
+MOE_LAYERS, MOE_FP32_LAYERS = 6, 2
+# fp32 logits, kernel path against naive path: the CPU model tests' tolerance
+LOGIT_TOL_FP32 = 1e-4
 # (atol, rtol): |got - want| <= atol + rtol |want| in every element.
 # K5 computes in fp32 from the inputs' values, as its plain version does: on
 # bf16 inputs the two differ by summation order and by a flip of y's one
@@ -557,10 +594,11 @@ def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict, dict]:
     return fa, bwd, fa_more, more
 
 
-def phase_checks(cfg, hybrid, long_cfg) -> tuple[dict, dict, dict]:
-    """All shapes; returns the two rows taken at the serve path's shapes and
-    K3's timed rows at ``hybrid``'s shared block (G=1), B=8 S=2048 and a
-    32k-token cache at ``long_cfg``'s heads."""
+def phase_checks(cfg, hybrid, long_cfg, vlm, moe) -> tuple[dict, dict, dict, dict]:
+    """All shapes; returns the two rows taken at the serve path's shapes,
+    K3's timed rows at ``hybrid``'s shared block (G=1), B=8 S=2048, a
+    32k-token cache at ``long_cfg``'s heads and the ``vlm`` and ``moe``
+    paths' decode calls, and K1's timed rows at those two paths' prefill."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -615,9 +653,29 @@ def phase_checks(cfg, hybrid, long_cfg) -> tuple[dict, dict, dict]:
     rows.append(check_decode_graph(gen, b=BATCH, h=h, kvh=kvh, d=d, s=MAX_LEN, dtype=bf16))
     rows.append(check_decode_graph(gen, b=BATCH, h=hybrid.n_heads, kvh=hybrid.n_kv_heads,
                                    d=hybrid.head_dim, s=MAX_LEN, dtype=bf16))
+    # the D=128 models' own calls: each layer's prefill, and the last decode
+    # step of a 16-step generate (kv_len 527) in a cache of MAX_LEN
+    fa_models = {}
+    for key, m in ((f"{VLM_ARCH} G=6", vlm), (f"{MOE_ARCH} G=16", moe)):
+        fa_models[key] = check_flash_attention(gen, b=BATCH, sq=PROMPT_LEN, skv=PROMPT_LEN,
+                                               h=m.n_heads, kvh=m.n_kv_heads, d=m.head_dim,
+                                               dtype=bf16, causal=True, timed=True)
+        fd_more[key] = check_flash_decode(gen, b=BATCH, h=m.n_heads, kvh=m.n_kv_heads,
+                                          d=m.head_dim, s=MAX_LEN,
+                                          kv_len=PROMPT_LEN + FAMILY_GEN_STEPS - 1, dtype=bf16,
+                                          timed=True)
+    rows.extend(fa_models.values())
+    rows.extend(fd_more[key] for key in fa_models)
+    # serve_moe's fp32 run: K1's and K3's fp32 instances at its heads
+    rows.append(check_flash_attention(gen, b=BATCH, sq=PROMPT_LEN, skv=PROMPT_LEN,
+                                      h=moe.n_heads, kvh=moe.n_kv_heads, d=moe.head_dim,
+                                      dtype=fp32, causal=True))
+    rows.append(check_flash_decode(gen, b=BATCH, h=moe.n_heads, kvh=moe.n_kv_heads,
+                                   d=moe.head_dim, s=MAX_LEN,
+                                   kv_len=PROMPT_LEN + FAMILY_GEN_STEPS - 1, dtype=fp32))
     for row in rows:
         emit({"phase": "checks", **row})
-    return fa_path, fd_path, fd_more
+    return fa_path, fd_path, fd_more, fa_models
 
 
 def check_fused_ffn(gen, *, t, d, f, dtype, timed=False, alloc=False, both_routes=False) -> dict:
@@ -837,39 +895,154 @@ def phase_hybrid_checks(cfg, ssm_cfg) -> dict:
 # the serving path
 # --------------------------------------------------------------------------------
 
-def logits_agree(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def logits_agree(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = LOGIT_ATOL,
+                 rtol: float = LOGIT_RTOL) -> float:
+    """Max |got - want|; raises unless both are finite, of one shape and
+    within atol + rtol |want|."""
     got, want = got.float(), want.float()
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: bad shape {tuple(got.shape)} or non-finite logits")
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
-        raise AssertionError(f"{name}: logits differ by up to {err} "
-                             f"(atol {LOGIT_ATOL}, rtol {LOGIT_RTOL})")
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{name}: logits differ by up to {err} (atol {atol}, rtol {rtol})")
     return err
 
 
-def drive(model, prompts) -> dict:
-    """The two steps of the serving path through one model: the prefill step
-    and the engine's generate, timed on the host clock around a synchronize."""
+@contextlib.contextmanager
+def routes(replay=None):
+    """The experts (T, k) that every ``moe.route`` call made while it is open
+    picks, in call order. With ``replay`` (such experts, one a call), each
+    call sends its tokens to the replayed experts instead, weighted by its own
+    router probabilities renormalised over them as ``route`` does (its aux
+    loss is its own pick's): two paths then route alike whatever their
+    roundings."""
+    from repro_torch.models import moe
+
+    calls, route = [], moe.route
+
+    def recording(params, cfg, x2d):
+        weights, experts, aux = route(params, cfg, x2d)
+        calls.append(experts)
+        if replay is None:
+            return weights, experts, aux
+        experts = replay[len(calls) - 1]
+        probs = torch.softmax((x2d @ params["router"]).float(), dim=-1).gather(-1, experts)
+        weights = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+        return weights.to(x2d.dtype), experts, aux
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def drive(model, prompts, batches: dict, counters, gen_steps: int,
+          record_routes: bool = False, replay: dict | None = None) -> dict:
+    """The prefill step on each of ``batches`` (name -> batch), then the
+    engine's ``generate``. Per part: the launch counts (and, for a counter
+    with ``launches_by_route``, those by route), host-clock seconds around a
+    synchronize, logits (the prefill step's last position; the engine's at
+    the last prompt position) and, with ``record_routes`` or ``replay``, the
+    experts each routing picked; ``replay`` (part -> experts a call) routes
+    each part's calls as given."""
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.serve.step import make_prefill_step
 
     prefill = make_prefill_step(model)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    last_logits = prefill({"tokens": prompts})
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    out = {"prefill": prefill, "launches": {}, "by_route": {}, "seconds": {}, "logits": {},
+           "routes": {}}
+    by_route = [c for c in counters if hasattr(c, "launches_by_route")]
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        for c in by_route:
+            c.launches_by_route = dict.fromkeys(c.launches_by_route, 0)
+        recorder = (routes(replay[name] if replay else None) if record_routes or replay
+                    else contextlib.nullcontext([]))
+        with recorder as calls:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = {c.__name__: c.launches for c in counters}
+        out["by_route"][name] = {c.__name__: dict(c.launches_by_route) for c in by_route}
+        out["routes"][name] = calls
+        return result
+
+    for name, batch in batches.items():
+        out["logits"][name] = part(name, lambda: prefill(batch))[:, 0].float()
     engine = ServingEngine(model, BATCH, MAX_LEN)
-    tokens = engine.generate(prompts, GEN_STEPS)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return {"prefill_logits": last_logits[:, 0].float(), "engine_logits": engine.prefill_logits,
-            "tokens": tokens, "prefill_s": t1 - t0, "generate_s": t2 - t1,
-            "prefill": prefill, "engine": engine}
+    out["tokens"] = part("generate", lambda: engine.generate(prompts, gen_steps))
+    out["logits"]["engine"] = engine.prefill_logits
+    out["engine"] = engine
+    return out
+
+
+def total_launches(ker: dict) -> dict:
+    """A drive's launches by counter, summed over its parts."""
+    parts = list(ker["launches"].values())
+    return {k: sum(part[k] for part in parts) for k in parts[0]}
+
+
+def serve_times(ker: dict, ref: dict, timed: dict, prompts, batch, gen_steps: int) -> dict:
+    """The eager ms of the timed drive, device ms (graph replay) of the
+    prefill step on ``batch`` and of one decode step at the last position,
+    the idle shares, the naive path's and the first drive's eager ms, and a
+    ``torch.profiler`` breakdown of each step. The engine is built outside
+    the timed spans."""
+    engine, drive_steps = timed["engine"], PROMPT_LEN + gen_steps - 1
+    generate_s = timed["seconds"]["generate"]
+    prefill_ms = timed["seconds"]["prefill"] * 1e3
+    decode_ms = generate_s * 1e3 / drive_steps
+    prefill_device_ms = device_ms(lambda: timed["prefill"](batch), launches=1, replays=3)
+    decode_device_ms = device_ms(lambda: engine.decode(engine.cache, prompts[:, :1], drive_steps),
+                                 launches=1, replays=10)
+    return {"prefill_ms": prefill_ms, "prefill_device_ms": prefill_device_ms,
+            "prefill_device_idle_share": 1 - prefill_device_ms / prefill_ms,
+            "decode_ms_per_step": decode_ms, "decode_device_ms_per_step": decode_device_ms,
+            "decode_device_idle_share": 1 - decode_device_ms / decode_ms,
+            "generate_s": generate_s,
+            "generated_tokens_per_s": BATCH * gen_steps / generate_s,
+            "decode_tokens_per_s": BATCH * drive_steps / generate_s,
+            "naive_prefill_ms": ref["seconds"]["prefill"] * 1e3,
+            "naive_decode_ms_per_step": ref["seconds"]["generate"] * 1e3 / drive_steps,
+            "first_run_prefill_ms": ker["seconds"]["prefill"] * 1e3,
+            "profile": {"prefill": profile_step(lambda: timed["prefill"](batch)),
+                        "decode_step": profile_step(
+                            lambda: engine.decode(engine.cache, prompts[:, :1], drive_steps))}}
+
+
+def check_launches(name: str, ker: dict, ref: dict, want: dict) -> None:
+    """The kernel path's launch counts as designed, none on the naive path."""
+    if ker["launches"] != want:
+        raise AssertionError(f"{name}: launch counts {ker['launches']}, expected {want}")
+    if any(v for part in ref["launches"].values() for v in part.values()):
+        raise AssertionError(f"{name}: the naive path launched a kernel: {ref['launches']}")
+
+
+def check_drives(name: str, cfg, ker: dict, ref: dict, timed: dict, want: dict,
+                 gen_steps: int) -> None:
+    """``check_launches``, and two kernel-path drives equal to the bit
+    (logits and tokens)."""
+    check_launches(name, ker, ref, want)
+    toks = ker["tokens"]
+    if (toks.shape != (BATCH, gen_steps) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size):
+        raise AssertionError(f"{name}: bad tokens: shape {tuple(toks.shape)}")
+    if not torch.equal(toks, timed["tokens"]):
+        raise AssertionError(f"{name}: two greedy runs of the kernel path gave different tokens")
+    for part, logits in ker["logits"].items():
+        if not torch.equal(logits, timed["logits"][part]):
+            raise AssertionError(f"{name}: two kernel-path runs gave different {part} logits")
 
 
 def phase_serve(cfg) -> dict:
+    """tinyllama-1.1b at full width and depth through the prefill step and
+    the engine, kernel path (K1, K3) against the naive path on the same
+    weights."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.models import LanguageModel
@@ -880,66 +1053,38 @@ def phase_serve(cfg) -> dict:
     naive.params = model.params                      # the same weights, not a copy
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
-
+    batches = {"prefill": {"tokens": prompts}}
+    counters = (flash_attention, flash_decode)
     drive_steps = PROMPT_LEN + GEN_STEPS - 1         # decode-step calls in one generate
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    flash_decode.launches = 0
-    ker = drive(model, prompts)
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_decode": flash_decode.launches}
-    peak_bytes = torch.cuda.max_memory_allocated()
-    expected = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * drive_steps}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    want = {"prefill": {"flash_attention": cfg.n_layers, "flash_decode": 0},
+            "generate": {"flash_attention": 0, "flash_decode": cfg.n_layers * drive_steps}}
 
-    ref = drive(naive, prompts)
-    if (flash_attention.launches, flash_decode.launches) != tuple(expected.values()):
-        raise AssertionError("the naive path launched a kernel")
+    torch.cuda.reset_peak_memory_stats()
+    ker = drive(model, prompts, batches, counters, GEN_STEPS)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    ref = drive(naive, prompts, batches, counters, GEN_STEPS)
     # a second kernel-path drive for the times: the first one paid for cuBLAS's
     # start-up and the allocator's first growth
-    timed = drive(model, prompts)
-
-    # what the card alone needs for each step (graph replay, no host in the
-    # way): the gap to the eager times above is the share the device idles
-    engine, last = timed["engine"], PROMPT_LEN + GEN_STEPS - 1
-    prefill_device_ms = device_ms(lambda: timed["prefill"]({"tokens": prompts}),
-                                  launches=1, replays=3)
-    decode_device_ms = device_ms(lambda: engine.decode(engine.cache, prompts[:, :1], last),
-                                 launches=1, replays=10)
-
-    toks = ker["tokens"]
-    if toks.shape != (BATCH, GEN_STEPS) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        raise AssertionError(f"bad tokens: shape {tuple(toks.shape)}")
-    if not torch.equal(toks, timed["tokens"]):
-        raise AssertionError("two greedy runs of the kernel path gave different tokens")
+    timed = drive(model, prompts, batches, counters, GEN_STEPS)
+    check_drives("serve", cfg, ker, ref, timed, want, GEN_STEPS)
+    kl, rl = ker["logits"], ref["logits"]
     errs = {
         "engine_vs_prefill": logits_agree("engine vs prefill step (kernel path)",
-                                          ker["engine_logits"], ker["prefill_logits"]),
+                                          kl["engine"], kl["prefill"]),
         "prefill_kernel_vs_naive": logits_agree("prefill step, kernel vs naive",
-                                                ker["prefill_logits"], ref["prefill_logits"]),
+                                                kl["prefill"], rl["prefill"]),
         "engine_kernel_vs_naive": logits_agree("engine, kernel vs naive",
-                                               ker["engine_logits"], ref["engine_logits"]),
+                                               kl["engine"], rl["engine"]),
     }
     row = {"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "bfloat16",
            "batch": BATCH, "prompt_len": PROMPT_LEN, "gen_steps": GEN_STEPS, "max_len": MAX_LEN,
-           "launches": launches, "logit_max_abs_diff": errs,
-           "tokens_equal_naive": bool(torch.equal(toks, ref["tokens"])),
-           "prefill_ms": timed["prefill_s"] * 1e3,
-           "decode_ms_per_step": timed["generate_s"] * 1e3 / drive_steps,
-           "generate_s": timed["generate_s"],
-           "generated_tokens_per_s": BATCH * GEN_STEPS / timed["generate_s"],
-           "decode_tokens_per_s": BATCH * drive_steps / timed["generate_s"],
-           "prefill_device_ms": prefill_device_ms,
-           "decode_device_ms_per_step": decode_device_ms,
-           "decode_device_idle_share":
-               1 - decode_device_ms / (timed["generate_s"] * 1e3 / drive_steps),
-           "naive_prefill_ms": ref["prefill_s"] * 1e3,
-           "naive_decode_ms_per_step": ref["generate_s"] * 1e3 / drive_steps,
-           "first_run_prefill_ms": ker["prefill_s"] * 1e3,
+           "launches": ker["launches"], "logit_max_abs_diff": errs,
+           "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
+           "kernel_runs_bit_identical": True,
+           **serve_times(ker, ref, timed, prompts, batches["prefill"], GEN_STEPS),
            "max_memory_allocated_bytes": peak_bytes}
     emit(row)
-    return launches
+    return total_launches(ker)
 
 
 def phase_serve_hybrid(cfg) -> dict:
@@ -949,106 +1094,48 @@ def phase_serve_hybrid(cfg) -> dict:
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.fused_ffn import fused_ffn
     from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import LanguageModel
     from repro_torch.models.layers import embed, rmsnorm
     from repro_torch.models.lm import _unbind_layers
     from repro_torch.models.ssm import mamba2_decode, mamba2_forward
-    from repro_torch.serve.step import make_prefill_step
 
     counters = (ssd_scan, flash_attention, fused_ffn, flash_decode)
-
-    def reset():
-        for c in counters:
-            c.launches = 0
-        fused_ffn.launches_by_route = dict.fromkeys(fused_ffn.launches_by_route, 0)
-        ssd_scan.launches_by_route = dict.fromkeys(ssd_scan.launches_by_route, 0)
-
-    def counts():
-        return {c.__name__: c.launches for c in counters}
-
     model = LanguageModel(cfg, impl="kernel", fused_ffn=True)
     model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
     naive = LanguageModel(cfg, impl="naive", fused_ffn=False)
     naive.params = model.params                      # the same weights, not a copy
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
+    batches = {"prefill": {"tokens": prompts}}
     n_shared = cfg.n_layers // cfg.attn_every
     drive_steps = PROMPT_LEN + HYBRID_GEN_STEPS - 1  # decode-step calls in one generate
-    want_prefill = {"ssd_scan": cfg.n_layers, "flash_attention": n_shared,
-                    "fused_ffn": n_shared, "flash_decode": 0}
-    want_generate = {"ssd_scan": 0, "flash_attention": 0, "fused_ffn": n_shared * drive_steps,
-                     "flash_decode": n_shared * drive_steps}
-    # K4's route: the prefill step's T = 2048 takes the tiled route, decode's T = 4 the row tiles
-    want_by_route = {"prefill": {"tiled": n_shared, "rowtile": 0},
-                     "generate": {"tiled": 0, "rowtile": n_shared * drive_steps}}
-    # K5's route: the prefill step's bf16 scan at N=64 takes the mma route
-    want_ssd_by_route = {"prefill": {"mma": cfg.n_layers, "fma": 0},
-                         "generate": {"mma": 0, "fma": 0}}
-
-    def drive_hybrid(m):
-        prefill = make_prefill_step(m)
-        torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        logits = prefill({"tokens": prompts})
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        c_prefill, r_prefill = counts(), dict(fused_ffn.launches_by_route)
-        ssd_prefill = dict(ssd_scan.launches_by_route)
-        reset()
-        engine = ServingEngine(m, BATCH, MAX_LEN)
-        toks = engine.generate(prompts, HYBRID_GEN_STEPS)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        return {"prefill_logits": logits[:, 0].float(), "engine_logits": engine.prefill_logits,
-                "tokens": toks, "prefill_s": t1 - t0, "generate_s": t2 - t1,
-                "launches": {"prefill": c_prefill, "generate": counts()},
-                "by_route": {"prefill": r_prefill, "generate": dict(fused_ffn.launches_by_route)},
-                "ssd_by_route": {"prefill": ssd_prefill,
-                                 "generate": dict(ssd_scan.launches_by_route)},
-                "prefill": prefill, "engine": engine}
+    want = {"prefill": {"ssd_scan": cfg.n_layers, "flash_attention": n_shared,
+                        "fused_ffn": n_shared, "flash_decode": 0},
+            "generate": {"ssd_scan": 0, "flash_attention": 0, "fused_ffn": n_shared * drive_steps,
+                         "flash_decode": n_shared * drive_steps}}
+    # K4's route: the prefill step's T = 2048 takes the tiled route, decode's
+    # T = 4 the row tiles; K5's: the prefill step's bf16 scan at N=64 the mma route
+    want_by_route = {"prefill": {"ssd_scan": {"mma": cfg.n_layers, "fma": 0},
+                                 "fused_ffn": {"tiled": n_shared, "rowtile": 0}},
+                     "generate": {"ssd_scan": {"mma": 0, "fma": 0},
+                                  "fused_ffn": {"tiled": 0, "rowtile": n_shared * drive_steps}}}
 
     torch.cuda.reset_peak_memory_stats()
-    ker = drive_hybrid(model)
+    ker = drive(model, prompts, batches, counters, HYBRID_GEN_STEPS)
     peak_bytes = torch.cuda.max_memory_allocated()
-    launches = ker["launches"]
-    if launches != {"prefill": want_prefill, "generate": want_generate}:
-        raise AssertionError(f"launch counts {launches}, expected prefill {want_prefill}, "
-                             f"generate {want_generate}")
     if ker["by_route"] != want_by_route:
-        raise AssertionError(f"fused_ffn launches by route {ker['by_route']}, expected "
-                             f"{want_by_route}")
-    if ker["ssd_by_route"] != want_ssd_by_route:
-        raise AssertionError(f"ssd_scan launches by route {ker['ssd_by_route']}, expected "
-                             f"{want_ssd_by_route}")
-    ref = drive_hybrid(naive)
-    if any(v for step in ref["launches"].values() for v in step.values()):
-        raise AssertionError(f"the naive path launched a kernel: {ref['launches']}")
-    timed = drive_hybrid(model)                      # the first run paid for start-up
-
-    engine, last = timed["engine"], drive_steps
-    prefill_device_ms = device_ms(lambda: timed["prefill"]({"tokens": prompts}),
-                                  launches=1, replays=3)
-    decode_device_ms = device_ms(lambda: engine.decode(engine.cache, prompts[:, :1], last),
-                                 launches=1, replays=10)
-    profile = {"prefill": profile_step(lambda: timed["prefill"]({"tokens": prompts})),
-               "decode_step": profile_step(
-                   lambda: engine.decode(engine.cache, prompts[:, :1], last))}
-
-    toks = ker["tokens"]
-    if (toks.shape != (BATCH, HYBRID_GEN_STEPS) or int(toks.min()) < 0
-            or int(toks.max()) >= cfg.vocab_size):
-        raise AssertionError(f"bad tokens: shape {tuple(toks.shape)}")
-    if not torch.equal(toks, timed["tokens"]):
-        raise AssertionError("two greedy runs of the kernel path gave different tokens")
+        raise AssertionError(f"launches by route {ker['by_route']}, expected {want_by_route}")
+    ref = drive(naive, prompts, batches, counters, HYBRID_GEN_STEPS)
+    timed = drive(model, prompts, batches, counters, HYBRID_GEN_STEPS)  # the first paid for start-up
+    check_drives("serve_hybrid", cfg, ker, ref, timed, want, HYBRID_GEN_STEPS)
+    kl, rl = ker["logits"], ref["logits"]
     errs = {
         "engine_vs_prefill": logits_agree("hybrid: engine vs prefill step (kernel path)",
-                                          ker["engine_logits"], ker["prefill_logits"]),
+                                          kl["engine"], kl["prefill"]),
         "prefill_kernel_vs_naive": logits_agree("hybrid: prefill step, kernel vs naive",
-                                                ker["prefill_logits"], ref["prefill_logits"]),
+                                                kl["prefill"], rl["prefill"]),
         "engine_kernel_vs_naive": logits_agree("hybrid: engine, kernel vs naive",
-                                               ker["engine_logits"], ref["engine_logits"]),
+                                               kl["engine"], rl["engine"]),
     }
 
     # layer 0 at full width: the SSM state after the prompt through the kernel
@@ -1067,37 +1154,259 @@ def phase_serve_hybrid(cfg) -> dict:
                                2e-2, 2e-2, True)
     conv_equal = bool(torch.equal(conv_fwd, conv))
 
-    prefill_ms = timed["prefill_s"] * 1e3
-    decode_ms = timed["generate_s"] * 1e3 / drive_steps
     row = {"phase": "serve_hybrid", "arch": cfg.name, "n_layers": cfg.n_layers,
            "shared_block_calls": n_shared, "dtype": "bfloat16", "impl": "kernel",
            "fused_ffn": True, "batch": BATCH, "prompt_len": PROMPT_LEN,
-           "gen_steps": HYBRID_GEN_STEPS, "max_len": MAX_LEN, "launches": launches,
-           "fused_ffn_launches_by_route": ker["by_route"],
-           "ssd_scan_launches_by_route": ker["ssd_by_route"],
+           "gen_steps": HYBRID_GEN_STEPS, "max_len": MAX_LEN, "launches": ker["launches"],
+           "launches_by_route": ker["by_route"],
            "logit_max_abs_diff": errs,
-           "tokens_equal_naive": bool(torch.equal(toks, ref["tokens"])),
+           "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
+           "kernel_runs_bit_identical": True,
            "layer0_state_max_abs_err": state_err,
            "layer0_state_max_abs": float(st.abs().max()),
            "layer0_state_rel_err": rel_err(st_fwd, st),
            "layer0_conv_state_equal": conv_equal,
-           "prefill_ms": prefill_ms, "prefill_device_ms": prefill_device_ms,
-           "prefill_device_idle_share": 1 - prefill_device_ms / prefill_ms,
-           "decode_ms_per_step": decode_ms, "decode_device_ms_per_step": decode_device_ms,
-           "decode_device_idle_share": 1 - decode_device_ms / decode_ms,
-           "generate_s": timed["generate_s"],
-           "generated_tokens_per_s": BATCH * HYBRID_GEN_STEPS / timed["generate_s"],
-           "decode_tokens_per_s": BATCH * drive_steps / timed["generate_s"],
-           "naive_prefill_ms": ref["prefill_s"] * 1e3,
-           "naive_decode_ms_per_step": ref["generate_s"] * 1e3 / drive_steps,
-           "first_run_prefill_ms": ker["prefill_s"] * 1e3,
-           "max_memory_allocated_bytes": peak_bytes, "profile": profile}
+           **serve_times(ker, ref, timed, prompts, batches["prefill"], HYBRID_GEN_STEPS),
+           "max_memory_allocated_bytes": peak_bytes}
     emit(row)
-    by_route = {r: sum(step[r] for step in ker["by_route"].values()) for r in want_by_route["prefill"]}
-    ssd_by_route = {r: sum(step[r] for step in ker["ssd_by_route"].values())
-                    for r in want_ssd_by_route["prefill"]}
-    return ({k: launches["prefill"][k] + launches["generate"][k] for k in want_prefill},
-            by_route, ssd_by_route)
+
+    def routes_total(name):
+        return {r: sum(part[name][r] for part in ker["by_route"].values())
+                for r in want_by_route["prefill"][name]}
+
+    return total_launches(ker), routes_total("fused_ffn"), routes_total("ssd_scan")
+
+
+def free_memory() -> None:
+    """Returns what earlier phases left to the allocator's cache, so that a
+    full-size model finds the card's memory whole."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def routing_agreement(got: list, want: list, n_layers: int) -> dict:
+    """How far two runs over the same calls (layer after layer) routed
+    alike: the share of (token, expert) decisions both made (a token's k
+    experts as a set), overall and by layer; the share of tokens sent to the
+    same set; the share of top-k slots holding the same expert in the same
+    rank."""
+    both = [(g[:, :, None] == w[:, None, :]).any(-1) for g, w in zip(got, want)]
+    by_layer = [torch.cat(both[i::n_layers]).float().mean() for i in range(n_layers)]
+    both = torch.cat(both)
+    slots = torch.cat([(g == w).reshape(-1) for g, w in zip(got, want)])
+    return {"token_routings": both.shape[0], "decision_share": float(both.float().mean()),
+            "decision_share_by_layer": [float(x) for x in by_layer],
+            "token_share": float(both.all(-1).float().mean()),
+            "slot_share": float(slots.float().mean())}
+
+
+def dropped_assignments(routes: list, cfg) -> list[int]:
+    """(token, expert) assignments past their expert's capacity, a call each."""
+    from repro_torch.models.moe import _capacity
+
+    out = []
+    for experts in routes:
+        counts = torch.bincount(experts.reshape(-1), minlength=cfg.n_experts)
+        out.append(int((counts - _capacity(experts.shape[0], cfg)).clamp(min=0).sum()))
+    return out
+
+
+def phase_serve_vlm(cfg) -> dict:
+    """internvl2-26b at full width and depth through the prefill step (with
+    VLM_PATCHES seeded patch embeddings, and without) and the engine, kernel
+    path (K1, K3 at D=128, G=6) against the naive path on the same weights."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.base import count_params
+
+    t_start = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = LanguageModel(cfg, impl="kernel")
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    init_peak = torch.cuda.max_memory_allocated()
+    naive = LanguageModel(cfg, impl="naive")
+    naive.params = model.params                      # the same weights, not a copy
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda", generator=gen)
+    patches = randn(gen, (BATCH, VLM_PATCHES, cfg.d_model), torch.bfloat16)
+    batches = {"prefill": {"tokens": prompts, "patch_embeds": patches},
+               "prefill_no_patches": {"tokens": prompts}}
+    counters = (flash_attention, flash_decode)
+    drive_steps = PROMPT_LEN + FAMILY_GEN_STEPS - 1
+    per_prefill = {"flash_attention": cfg.n_layers, "flash_decode": 0}
+    want = {"prefill": per_prefill, "prefill_no_patches": per_prefill,
+            "generate": {"flash_attention": 0, "flash_decode": cfg.n_layers * drive_steps}}
+
+    torch.cuda.reset_peak_memory_stats()
+    ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS)
+    timed = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
+    check_drives("serve_vlm", cfg, ker, ref, timed, want, FAMILY_GEN_STEPS)
+    kl, rl = ker["logits"], ref["logits"]
+    errs = {
+        "prefill_kernel_vs_naive": logits_agree("vlm: prefill step with patches, kernel vs naive",
+                                                kl["prefill"], rl["prefill"]),
+        "prefill_no_patches_kernel_vs_naive": logits_agree(
+            "vlm: prefill step without patches, kernel vs naive",
+            kl["prefill_no_patches"], rl["prefill_no_patches"]),
+        # the engine embeds token ids only, as the reference's does
+        "engine_vs_prefill_no_patches": logits_agree("vlm: engine vs prefill step (kernel path)",
+                                                     kl["engine"], kl["prefill_no_patches"]),
+        "engine_kernel_vs_naive": logits_agree("vlm: engine, kernel vs naive",
+                                               kl["engine"], rl["engine"]),
+    }
+    # the patches reach the model: they move the last position's logits
+    patch_shift = float((kl["prefill"] - kl["prefill_no_patches"]).abs().max())
+    if torch.allclose(kl["prefill"], kl["prefill_no_patches"], atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
+        raise AssertionError("vlm: the patch embeddings did not move the prefill step's logits")
+    row = {"phase": "serve_vlm", "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "bfloat16",
+           "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "D": cfg.head_dim},
+           "n_params": count_params(model.specs()), "batch": BATCH, "prompt_len": PROMPT_LEN,
+           "patches": VLM_PATCHES, "gen_steps": FAMILY_GEN_STEPS, "max_len": MAX_LEN,
+           "launches": ker["launches"], "logit_max_abs_diff": errs,
+           "logit_max_abs_shift_by_patches": patch_shift,
+           "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
+           "kernel_runs_bit_identical": True,
+           **serve_times(ker, ref, timed, prompts, batches["prefill"], FAMILY_GEN_STEPS),
+           "prefill_no_patches_ms": timed["seconds"]["prefill_no_patches"] * 1e3,
+           "init_max_memory_allocated_bytes": init_peak, "max_memory_allocated_bytes": peak}
+    row["phase_s"] = time.perf_counter() - t_start
+    emit(row)
+    return total_launches(ker)
+
+
+def phase_serve_moe(full_cfg) -> dict:
+    """qwen3-moe-235b-a22b at full width and MOE_LAYERS layers (bf16), then
+    MOE_FP32_LAYERS layers in fp32: the prefill step and the engine, kernel
+    path (K1, K3 at D=128, G=16) against the naive path on the same weights,
+    with both paths' routing decisions."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.base import count_params
+    from repro_torch.models.moe import _capacity
+    from repro_torch.serve.step import make_prefill_step
+
+    t_start = time.perf_counter()
+    counters = (flash_attention, flash_decode)
+    drive_steps = PROMPT_LEN + FAMILY_GEN_STEPS - 1
+    prompts = torch.randint(0, full_cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(2))
+    batches = {"prefill": {"tokens": prompts}}
+
+    def build(n_layers, dtype):
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(full_cfg, n_layers=n_layers)
+        model = LanguageModel(cfg, impl="kernel")
+        model.init(torch.Generator(device="cuda").manual_seed(0), dtype=dtype)
+        naive = LanguageModel(cfg, impl="naive")
+        naive.params = model.params                  # the same weights, not a copy
+        return cfg, model, naive, torch.cuda.max_memory_allocated()
+
+    def want(cfg):
+        return {"prefill": {"flash_attention": cfg.n_layers, "flash_decode": 0},
+                "generate": {"flash_attention": 0, "flash_decode": cfg.n_layers * drive_steps}}
+
+    def routing(cfg, ker, ref):
+        # the engine's prompt steps (teacher-forced, so both paths see the
+        # same tokens); the steps after follow each path's own tokens
+        prompt_calls = PROMPT_LEN * cfg.n_layers
+        return {"prefill": routing_agreement(ker["routes"]["prefill"], ref["routes"]["prefill"],
+                                             cfg.n_layers),
+                "engine_prompt": routing_agreement(ker["routes"]["generate"][:prompt_calls],
+                                                   ref["routes"]["generate"][:prompt_calls],
+                                                   cfg.n_layers)}
+
+    # ---- bf16, MOE_LAYERS layers ----
+    cfg, model, naive, init_peak = build(MOE_LAYERS, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
+    peak = torch.cuda.max_memory_allocated()
+    # bf16 router logits over 128 experts nearly tie, and a flipped k-th expert
+    # moves a token by far more than attention's own rounding: the naive path
+    # sends each token to the experts the kernel path chose (its own picks are
+    # recorded, given the same routing in the layers before), so the logits
+    # compare attention's two paths
+    ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS, replay=ker["routes"])
+    timed = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
+    check_drives("serve_moe", cfg, ker, ref, timed, want(cfg), FAMILY_GEN_STEPS)
+    agree = routing(cfg, ker, ref)
+    tokens = BATCH * PROMPT_LEN
+    dropped = dropped_assignments(ker["routes"]["prefill"], cfg)
+    if any(dropped_assignments(ker["routes"]["generate"], cfg)):
+        raise AssertionError("serve_moe: a decode step (4 tokens, capacity 8) dropped an assignment")
+    # the prefill step packs 2048 tokens against one capacity, a decode step 4:
+    # the engine is held against a prefill step that drops nothing
+    # (capacity_factor = E / k) and routes each token as the engine's prompt
+    # steps did (a call a step and layer, B tokens each)
+    L = cfg.n_layers
+    prompt_routes = ker["routes"]["generate"][:PROMPT_LEN * L]
+    engine_routes = [torch.stack(prompt_routes[i::L], dim=1).reshape(tokens, cfg.top_k)
+                     for i in range(L)]
+    no_drops = LanguageModel(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+                             impl="kernel")
+    no_drops.params = model.params
+    with routes(engine_routes):
+        no_drop_logits = make_prefill_step(no_drops)(batches["prefill"])[:, 0].float()
+    kl, rl = ker["logits"], ref["logits"]
+    errs = {
+        "prefill_kernel_vs_naive": logits_agree("moe: prefill step, kernel vs naive",
+                                                kl["prefill"], rl["prefill"]),
+        "engine_kernel_vs_naive": logits_agree("moe: engine, kernel vs naive", kl["engine"],
+                                               rl["engine"]),
+        "engine_vs_prefill_no_drops": logits_agree(
+            "moe: engine vs prefill step without drops, its routes (kernel path)",
+            kl["engine"], no_drop_logits),
+    }
+    row = {"phase": "serve_moe", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": f"depth {cfg.n_layers} of {full_cfg.n_layers} layers (one MoE layer is "
+                      "2.42 B parameters); full width", "dtype": "bfloat16",
+           "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "D": cfg.head_dim},
+           "experts": {"E": cfg.n_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
+                       "capacity_prefill": _capacity(tokens, cfg),
+                       "capacity_decode": _capacity(BATCH, cfg)},
+           "n_params": count_params(model.specs()), "batch": BATCH, "prompt_len": PROMPT_LEN,
+           "gen_steps": FAMILY_GEN_STEPS, "max_len": MAX_LEN, "launches": ker["launches"],
+           "naive_routes": "the kernel path's, replayed",
+           "routing_agreement": agree,
+           "prefill_dropped_assignments": {"by_layer": dropped, "of": tokens * cfg.top_k,
+                                           "share": sum(dropped) / (tokens * cfg.top_k * L)},
+           "logit_max_abs_diff": errs,
+           "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
+           "kernel_runs_bit_identical": True,
+           **serve_times(ker, ref, timed, prompts, batches["prefill"], FAMILY_GEN_STEPS),
+           "init_max_memory_allocated_bytes": init_peak, "max_memory_allocated_bytes": peak}
+    launches = total_launches(ker)
+    del model, naive, no_drops, ker, ref, timed
+
+    # ---- fp32, MOE_FP32_LAYERS layers: each path routes for itself ----
+    cfg32, model, naive, init_peak32 = build(MOE_FP32_LAYERS, torch.float32)
+    ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
+    ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
+    check_launches("serve_moe fp32", ker, ref, want(cfg32))
+    kl, rl = ker["logits"], ref["logits"]
+    row["fp32"] = {
+        "n_layers": cfg32.n_layers, "n_params": count_params(model.specs()), "tol": LOGIT_TOL_FP32,
+        "launches": ker["launches"], "routing_agreement": routing(cfg32, ker, ref),
+        "prefill_dropped_assignments": dropped_assignments(ker["routes"]["prefill"], cfg32),
+        "logit_max_abs_diff": {
+            "prefill_kernel_vs_naive": logits_agree("moe fp32: prefill step, kernel vs naive",
+                                                    kl["prefill"], rl["prefill"],
+                                                    LOGIT_TOL_FP32, LOGIT_TOL_FP32),
+            "engine_kernel_vs_naive": logits_agree("moe fp32: engine, kernel vs naive",
+                                                   kl["engine"], rl["engine"],
+                                                   LOGIT_TOL_FP32, LOGIT_TOL_FP32)},
+        "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
+        "prefill_ms": ker["seconds"]["prefill"] * 1e3,
+        "decode_ms_per_step": ker["seconds"]["generate"] * 1e3 / drive_steps,
+        "init_max_memory_allocated_bytes": init_peak32}
+    row["phase_s"] = time.perf_counter() - t_start
+    emit(row)
+    return launches
 
 
 # --------------------------------------------------------------------------------
@@ -1320,12 +1629,15 @@ def main() -> int:
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     emit(phase_occupancy(cfg))
-    fa, fd, fd_more = phase_checks(cfg, hybrid, configs.get(LONG_ARCH))
+    vlm, moe = configs.get(VLM_ARCH), configs.get(MOE_ARCH)
+    fa, fd, fd_more, fa_models = phase_checks(cfg, hybrid, configs.get(LONG_ARCH), vlm, moe)
     fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
     train_launches = phase_train(cfg)
+    vlm_launches = phase_serve_vlm(vlm)
+    moe_launches = phase_serve_moe(moe)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -1336,7 +1648,8 @@ def main() -> int:
                       "library_ms": row["library_ms"]} for key, row in bwd_more.items()}
 
     fa_shapes = {key: {"shape": row["shape"], "max_abs_err": row["max_abs_err"], **timing(row),
-                       "library_ms": row["library_ms"]} for key, row in fa_more.items()}
+                       "library_ms": row["library_ms"]}
+                 for key, row in {**fa_more, **fa_models}.items()}
 
     def summary(name, source, replaces, launches_by_path, row, err, times, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -1349,6 +1662,7 @@ def main() -> int:
                                      "F.scaled_dot_product_attention (fwd+bwd less fwd)"}
     def by_path(name):
         return {"serve": launches.get(name, 0), "serve_hybrid": hybrid_launches.get(name, 0),
+                "serve_vlm": vlm_launches.get(name, 0), "serve_moe": moe_launches.get(name, 0),
                 "train": train_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]

@@ -54,7 +54,10 @@ class ServingEngine:
 
     def prefill(self, prompts):
         """Teacher-forced prefill via the decode step (token at a time —
-        simple and exact). Returns the first generated token, (B,1)."""
+        simple and exact). Returns the first generated token, (B,1). The
+        decode step embeds token ids only, so a ``vlm``'s ``patch_embeds``
+        never reach the engine, as in the reference; they reach the model
+        through ``serve.step.make_prefill_step``."""
         prompts = self._tokens(prompts)
         plen = prompts.shape[1]
         if not 1 <= plen <= self.max_len:

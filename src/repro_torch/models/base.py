@@ -52,10 +52,11 @@ def _init_one(generator: torch.Generator, p: P, dtype, device) -> torch.Tensor:
     std = p.scale if p.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     if p.init == "small":
         std = 0.006
-    # drawn in fp32 on the generator's own device, then moved and cast
+    # drawn in fp32 on the generator's own device, scaled in place (no second
+    # fp32 tensor of the leaf's size), then moved and cast
     x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * std).to(device=device, dtype=dtype)
+    return x.mul_(std).to(device=device, dtype=dtype)
 
 
 def init_params(specs: Specs, generator: torch.Generator,

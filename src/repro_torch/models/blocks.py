@@ -1,8 +1,11 @@
 """Per-family transformer blocks (pre-norm residual structure)."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.base import Specs
 from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
@@ -27,6 +30,34 @@ def dense_block(params, cfg: ModelConfig, x, positions, impl="kernel",
     x = x + h
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + ffn(params["ffn"], h, fused=fused)
+
+
+# ---- MoE (GQA attention) -----------------------------------------------------------
+
+def moe_block_specs(cfg: ModelConfig, dense_ffn: bool) -> Specs:
+    s: Specs = {
+        "ln1": rmsnorm_specs(cfg.d_model),
+        "attn": attn.gqa_specs(cfg),
+        "ln2": rmsnorm_specs(cfg.d_model),
+    }
+    if dense_ffn:
+        s["ffn"] = ffn_specs(cfg.d_model, cfg.dense_d_ff or cfg.d_ff)
+    else:
+        s["moe"] = moe_mod.moe_specs(cfg)
+    return s
+
+
+def moe_block(params, cfg: ModelConfig, x, positions, impl="kernel", fused=False):
+    """Returns (x, aux_loss): a dense-FFN layer's aux is 0."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    h = attn.gqa_attention(params["attn"], cfg, h, positions, impl=impl)
+    x = x + h
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    if "ffn" in params:
+        return (x + ffn(params["ffn"], h, fused=fused),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    y, aux = moe_mod.moe_ffn(params["moe"], cfg, h, fused=fused)
+    return x + y, aux
 
 
 # ---- SSM (Mamba-2) -----------------------------------------------------------------

@@ -11,10 +11,14 @@ and the prefill/decode paths with layer-stacked caches.
 The module holds its parameters as one nested ``ParameterDict`` with the
 reference's keys and stacked shapes (layer parameters carry a leading
 ``layers`` axis), so a parameter tree converts 1:1. The ``dense`` (GQA),
-``ssm`` (Mamba-2) and ``hybrid`` (Mamba-2 with one shared attention + MLP
-block after every ``attn_every``-th layer, Zamba-2) families are assembled.
-``impl="kernel"`` runs attention through K1/K3 and the SSD scan through K5;
-``fused_ffn=True`` runs every SwiGLU MLP through K4 (forward only).
+``vlm`` (the dense family, whose batch may carry ``patch_embeds`` for its
+first positions), ``moe`` (GQA attention with routed experts, after
+``first_k_dense`` dense-FFN layers), ``ssm`` (Mamba-2) and ``hybrid``
+(Mamba-2 with one shared attention + MLP block after every
+``attn_every``-th layer, Zamba-2) families are assembled; MLA attention is
+not. ``impl="kernel"`` runs attention through K1/K3 and the SSD scan through
+K5; ``fused_ffn=True`` runs every SwiGLU MLP but the routed experts through
+K4 (forward only).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.models.attention import IMPLS, gqa_decode
 from repro_torch.models.base import Specs, axes_tree, init_params, stack_specs
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_specs,
                                        ffn, logits_for_tokens, rmsnorm, rmsnorm_specs)
+from repro_torch.models.moe import moe_ffn
 
 REMATS = ("none", "dots", "full")
 # what remat "dots" keeps: the outputs of the matrix products, as
@@ -53,13 +58,10 @@ def _maybe_remat(fn, remat: str, *args):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **context)
 
 
-# where each family that is not assembled yet stands in ROADMAP.md, queue 1
-FAMILY_ROADMAP_ITEM = {
-    "vlm": "item 8 (vlm front end)",
-    "moe": "item 9 (MLA + MoE)",
-    "audio": "item 11 (encoder-decoder)",
-}
-FAMILIES = ("dense", "ssm", "hybrid")
+# where what is not assembled yet stands in ROADMAP.md, queue 1
+FAMILY_ROADMAP_ITEM = {"audio": "item 11 (encoder-decoder)"}
+MLA_ROADMAP_ITEM = "item 9b (MLA)"
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _to_module(tree: dict) -> nn.ParameterDict:
@@ -90,10 +92,12 @@ class LanguageModel(nn.Module):
             raise ValueError(f"impl {impl!r} not one of {IMPLS}")
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not one of {REMATS}")
-        if cfg.family not in FAMILIES or cfg.use_mla:
-            item = FAMILY_ROADMAP_ITEM.get(cfg.family, "item 9 (MLA + MoE)")
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP.md queue 1, {item}")
+        if cfg.use_mla:
+            raise NotImplementedError(f"MLA attention ({cfg.name}) is not ported yet: "
+                                      f"ROADMAP.md queue 1, {MLA_ROADMAP_ITEM}")
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
+                                      f"ROADMAP.md queue 1, {FAMILY_ROADMAP_ITEM[cfg.family]}")
         self.cfg = cfg
         self.impl = impl            # sdpa / decode implementation
         self.remat = remat          # per-block rematerialization policy
@@ -107,8 +111,14 @@ class LanguageModel(nn.Module):
             "emb": embedding_specs(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings),
             "ln_f": rmsnorm_specs(cfg.d_model),
         }
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             s["layers"] = stack_specs(blocks.dense_block_specs(cfg), cfg.n_layers)
+        elif cfg.family == "moe":
+            kd = cfg.first_k_dense
+            if kd:
+                s["dense_layers"] = stack_specs(blocks.moe_block_specs(cfg, dense_ffn=True), kd)
+            s["layers"] = stack_specs(blocks.moe_block_specs(cfg, dense_ffn=False),
+                                      cfg.n_layers - kd)
         else:
             s["layers"] = stack_specs(blocks.mamba_block_specs(cfg), cfg.n_layers)
         if cfg.family == "hybrid":
@@ -137,19 +147,45 @@ class LanguageModel(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.params["ln_f"]["scale"].dtype
 
+    # ------------------------------------------------------------- embeddings --
+    def _embed_inputs(self, batch):
+        """Token embeddings; a ``vision`` front end's ``patch_embeds`` (B,P,d),
+        where the batch has them, take the first P positions, cast to the
+        embeddings' dtype."""
+        x = embed(self.params["emb"], batch["tokens"])
+        if self.cfg.frontend == "vision" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return x
+
     # ---------------------------------------------------------------- forward --
     def forward(self, batch):
-        """batch: {"tokens": (B,S) int, optional "positions": (B,S)}.
-        Returns (hidden (B,S,d), aux_loss)."""
+        """batch: {"tokens": (B,S) int, optional "positions": (B,S), optional
+        "patch_embeds": (B,P,d) for a vision front end}. Returns (hidden
+        (B,S,d), aux_loss fp32)."""
         cfg, params = self.cfg, self.params
-        x = embed(params["emb"], batch["tokens"])
+        x = self._embed_inputs(batch)
         b, s = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        if cfg.family == "dense":
+        if cfg.family == "moe":
+            def moe_body(x_, p_):
+                return blocks.moe_block(p_, cfg, x_, positions, impl=self.impl,
+                                        fused=self.fused_ffn)
+
+            groups = [("layers", cfg.n_layers - cfg.first_k_dense)]
+            if cfg.first_k_dense:
+                groups.insert(0, ("dense_layers", cfg.first_k_dense))
+            for key, n in groups:
+                for p in _unbind_layers(params[key], n):
+                    x, a = _maybe_remat(moe_body, self.remat, x, p)
+                    aux = aux + a
+            return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+        if cfg.family in ("dense", "vlm"):
             def body(x_, p_):
                 return blocks.dense_block(p_, cfg, x_, positions, impl=self.impl,
                                           fused=self.fused_ffn)
@@ -171,7 +207,8 @@ class LanguageModel(nn.Module):
     # ------------------------------------------------------------------- loss --
     def loss(self, batch, aux_weight: float = 0.01):
         """batch: {"tokens", "labels": (B,S) int, optional "positions",
-        "loss_mask"}. Mean next-token cross-entropy, fp32 scalar."""
+        "loss_mask"}. Mean next-token cross-entropy plus ``aux_weight`` times
+        the MoE load-balance loss, fp32 scalar."""
         h, aux = self.forward(batch)
         ce = chunked_cross_entropy(self.params["emb"], h, batch["labels"],
                                    mask=batch.get("loss_mask"))
@@ -179,15 +216,27 @@ class LanguageModel(nn.Module):
 
     # ------------------------------------------------------------------ cache --
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
-        """Zeroed caches; dtype and device default to the parameters'. Dense:
-        (L,B,S,KVH,D) ``k``/``v``. SSM: ``conv`` (L,B,kw-1,C) and ``ssm``
-        (L,B,H,P,N), the SSM state always fp32. Hybrid: those, and
+        """Zeroed caches; dtype and device default to the parameters'. Dense,
+        vlm and moe: (L,B,S,KVH,D) ``k``/``v``. SSM: ``conv`` (L,B,kw-1,C)
+        and ``ssm`` (L,B,H,P,N), the SSM state always fp32. Hybrid: those, and
         ``shared_k``/``shared_v`` (L // attn_every, B, S, KVH, D) for the
-        shared block's calls."""
+        shared block's calls.
+
+        A ``moe`` config with GQA attention and first_k_dense > 0 is refused:
+        the reference's decode step scans ``layers`` (n_layers - first_k_dense
+        of them) against the n_layers-deep cache and never runs
+        ``dense_layers`` (``models/lm.py:decode_step``), so it has no
+        semantics to copy, and no decode step runs without this cache."""
         cfg = self.cfg
+        if cfg.family == "moe" and cfg.first_k_dense:
+            raise NotImplementedError(
+                f"{cfg.name}: no decode step for a moe config with GQA attention and "
+                f"first_k_dense={cfg.first_k_dense}: the reference's scans the "
+                f"{cfg.n_layers - cfg.first_k_dense} MoE layers against an {cfg.n_layers}-layer "
+                "cache and skips the dense layers")
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm", "moe"):
             shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=device),
                     "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -215,7 +264,7 @@ class LanguageModel(nn.Module):
         cfg, params = self.cfg, self.params
         x = embed(params["emb"], tokens)
         for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
-            if cfg.family == "dense":
+            if cfg.family in ("dense", "vlm", "moe"):
                 x = self._attn_mlp_decode(p, x, cache["k"][i], cache["v"][i], pos)
                 continue
             x, _, _ = blocks.mamba_block_decode(p, cfg, x, cache["conv"][i], cache["ssm"][i])
@@ -227,11 +276,13 @@ class LanguageModel(nn.Module):
         return logits_for_tokens(params["emb"], h), cache
 
     def _attn_mlp_decode(self, p, x, cache_k, cache_v, pos: int):
-        """One token through an attention + MLP block (a dense layer, or the
-        hybrid's shared block); the caches are written in place."""
+        """One token through an attention + MLP block (a dense or MoE layer,
+        or the hybrid's shared block); the caches are written in place."""
         cfg = self.cfg
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         o, _, _ = gqa_decode(p["attn"], cfg, h, cache_k, cache_v, pos, impl=self.impl)
         x = x + o
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + ffn(p["ffn"], h, fused=self.fused_ffn)
+        if "ffn" in p:
+            return x + ffn(p["ffn"], h, fused=self.fused_ffn)
+        return x + moe_ffn(p["moe"], cfg, h, fused=self.fused_ffn)[0]

@@ -136,12 +136,43 @@ def test_own_init_shapes_dtypes_and_std(dtype):
     assert torch.equal(w(model), w(again)) and not torch.equal(w(model), w(other))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internvl2-26b", "whisper-base"])
-def test_other_families_name_their_roadmap_item(arch):
-    """Families that are not ported raise, and say where they are queued. The
+@pytest.mark.parametrize("arch,item", [("deepseek-v2-236b", "item 9b"),
+                                       ("whisper-base", "item 11")])
+def test_other_families_name_their_roadmap_item(arch, item):
+    """What is not ported raises, and says where it is queued: MLA attention
+    (a ``moe`` config with ``use_mla``) and the encoder-decoder family. The
     port has no config for them yet, so the reference's schema is copied."""
     cj = jconfigs.get(arch).smoke()
     fields = tconfigs.ModelConfig.__dataclass_fields__
     ct = tconfigs.ModelConfig(**{f: getattr(cj, f) for f in fields})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         LanguageModel(ct)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_init_scales_in_place_to_the_same_bits(dtype):
+    """``init_params`` scales each fp32 draw in place: for one leaf of each
+    init kind, the same tensors bit for bit as drawing in sorted-path order
+    and taking ``(x * std).to(dtype)``."""
+    import math
+
+    from repro_torch.models.base import init_params
+
+    specs = {"a_normal": P((6, 5), ("embed", "ff")),
+             "b_small": P((7, 4), ("vocab", "embed"), init="small"),
+             "c_scaled": P((3, 8, 2), ("layers", "embed", "ff"), scale=0.37),
+             "d_zeros": P((4,), ("embed",), init="zeros"),
+             "e_ones": P((4,), ("embed",), init="ones"),
+             "f_vector": P((9,), ("embed",))}
+    got = init_params(specs, torch.Generator().manual_seed(11), dtype, "cpu")
+    gen = torch.Generator().manual_seed(11)
+    for name in sorted(specs):
+        p = specs[name]
+        if p.init in ("zeros", "ones"):
+            want = (torch.zeros if p.init == "zeros" else torch.ones)(p.shape, dtype=dtype)
+        else:
+            fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+            std = 0.006 if p.init == "small" else (p.scale or 1.0 / math.sqrt(fan_in))
+            x = torch.randn(p.shape, generator=gen, dtype=torch.float32)
+            want = (x * std).to(dtype)
+        assert got[name].dtype == dtype and torch.equal(got[name], want), name
