@@ -8,8 +8,9 @@ Phases, one JSON object a line:
   build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
            with each kernel's registers and spill bytes as ptxas reports them
            (template instances named by their arguments, e.g.
-           attn_bwd_dkv_mma<128,32>); K3's bf16 instances and K5's mma
-           instances must not spill
+           attn_bwd_dkv_mma<128,32>); K3's bf16 instances, K5's mma
+           instances and K1's bf16 instance at MLA's head dims
+           (attn_fwd_mma<192,128>) must not spill
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
            training shape, with its plan
   checks   every kernel against its plain PyTorch version on the card, over
@@ -32,7 +33,10 @@ Phases, one JSON object a line:
            timed at S=4096 (B=1) and at D=128 (yi-6b's heads, B=2, S=1024);
            K1 and K3 also timed at the two D=128 models' serving shapes
            (internvl2-26b G=6, qwen3-moe-235b-a22b G=16: prefill B=4 S=512,
-           decode kv_len 527)
+           decode kv_len 527); K1 at MLA's head dims (q/k 192, v 128):
+           timed at deepseek-v2-236b's prefill (B=4 S=512 H=KVH=128), with
+           the kernels `sdpa` ran named, and at S=333, Sq=200 Skv=333
+           non-causal, G=4 and fp32 (all timed)
   serve    tinyllama-1.1b at full width and depth, bf16, seeded random
            weights: one 512-token prefill through `forward` (flash_attention)
            and `ServingEngine.generate` for 32 greedy steps (flash_decode at
@@ -91,14 +95,22 @@ Phases, one JSON object a line:
            and the engine against a prefill step that drops nothing and
            routes as the engine's prompt steps did; then 2 layers in fp32,
            each path routing for itself, kernel against naive logits held
-           at 1e-4.
-           Both rows: device ms (graph replay) and eager ms of the prefill
+           at 1e-4, routing identical.
+  serve_mla  deepseek-v2-236b at full width (d 5120, MLA: 128 heads,
+           kv_lora 512, q_lora 1536, rope 64, v 128; 160 experts top-6, 2
+           shared) and 4 of its 60 layers (the dense-FFN layer + 3 MoE
+           layers), bf16, run by serve_moe's code: the prefill step (K1
+           4, at head dims (192, 128)) and `generate` for 16 steps (the
+           absorbed decode on the latent cache: no kernel, K3 0); then the
+           dense layer + 1 MoE layer in fp32.
+           All three rows: device ms (graph replay) and eager ms of the prefill
            and decode steps, idle shares, a torch.profiler breakdown of each
            step, peak memory (after init and while driving), phase seconds
   kernels  the summary line: per kernel its launches on each path (serve,
-           serve_hybrid, serve_vlm, serve_moe, train), error,
+           serve_hybrid, serve_vlm, serve_moe, serve_mla, train), error,
            time, plain time, bound and the library call's time; K1 and K2
-           also at S=4096 and D=128, K1 also at the two D=128 models' prefill,
+           also at S=4096 and D=128, K1 also at the two D=128 models' and
+           the MLA model's prefill,
            K3 with its plan and at its five other timed shapes
            (`more_shapes`); K4 also its launches by
            route and both routes' times at T=2048 and T=256; K5 its launches
@@ -149,6 +161,10 @@ VLM_PATCHES = 256          # the reference's patch positions for a vlm (launch/s
 # qwen3-moe-235b-a22b at full width, cut in depth to fit one 80 GB card: 6 of
 # its 94 layers in bf16 (16.2 B parameters), 2 in fp32 (6.2 B)
 MOE_LAYERS, MOE_FP32_LAYERS = 6, 2
+# deepseek-v2-236b (MLA) at full width, cut in depth: its first_k_dense layer
+# and 3 MoE layers in bf16 (13.30 B parameters), the dense layer and 1 MoE
+# layer in fp32 (5.36 B)
+MLA_ARCH, MLA_LAYERS, MLA_FP32_LAYERS = "deepseek-v2-236b", 4, 2
 # fp32 logits, kernel path against naive path: the CPU model tests' tolerance
 LOGIT_TOL_FP32 = 1e-4
 # (atol, rtol): |got - want| <= atol + rtol |want| in every element.
@@ -341,15 +357,19 @@ def randn(gen, shape, dtype):
 # kernel checks
 # --------------------------------------------------------------------------------
 
-def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=False) -> dict:
+def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, dv=None,
+                          timed=False) -> dict:
     """K1 against its plain version (out and lse), and twice on the same
-    inputs (the two launches must agree bit for bit)."""
+    inputs (the two launches must agree bit for bit). ``dv``: v's head dim
+    where it differs from q's and k's (MLA). Timed rows also name the
+    kernels the library call ran (the backend ``sdpa`` picked)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
+    dv = d if dv is None else dv
     q = randn(gen, (b, sq, h, d), dtype)
     k = randn(gen, (b, skv, kvh, d), dtype)
-    v = randn(gen, (b, skv, kvh, d), dtype)
+    v = randn(gen, (b, skv, kvh, dv), dtype)
     out, lse = flash_attention(q, k, v, causal=causal)
     out2, lse2 = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -357,6 +377,7 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=Fa
     tol = TOL[dtype]
     row = {"kernel": "flash_attention",
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "D": d,
+                     **({"Dv": dv} if dv != d else {}),
                      "dtype": str(dtype).split(".")[-1], "causal": causal},
            "tol": tol,
            "max_abs_err": compare("flash_attention out", out, want, tol),
@@ -366,16 +387,21 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=Fa
         raise AssertionError("flash_attention: two launches on the same inputs differ")
     if timed:
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-        flops = 4 * b * h * d * pairs
+        nbytes = (q.element_size() * (q.numel() + k.numel() + v.numel() + out.numel())
+                  + 4 * lse.numel())
+        flops = 2 * b * h * (d + dv) * pairs          # Q K^T over D, P V over Dv
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
         row.update(
             kernel_ms=device_ms(lambda: flash_attention(q, k, v, causal=causal)),
             call_ms=call_ms(lambda: flash_attention(q, k, v, causal=causal)),
             plain_ms=device_ms(lambda: flash_attention_plain(q, k, v, causal=causal), launches=3),
-            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+            library_ms=device_ms(library),
+            library_kernels=[r["kernel"] for r in profile_step(library, top=3)["top"]],
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
     return row
 
@@ -594,11 +620,19 @@ def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict, dict]:
     return fa, bwd, fa_more, more
 
 
-def phase_checks(cfg, hybrid, long_cfg, vlm, moe) -> tuple[dict, dict, dict, dict]:
+def mla_dims(cfg) -> dict:
+    """K1's head dims and heads on an MLA model's prefill: q/k at
+    head_dim + rope_head_dim, v at v_head_dim, one KV head a query head."""
+    return dict(h=cfg.n_heads, kvh=cfg.n_heads, d=cfg.head_dim + cfg.rope_head_dim,
+                dv=cfg.v_head_dim)
+
+
+def phase_checks(cfg, hybrid, long_cfg, vlm, moe, mla) -> tuple[dict, dict, dict, dict]:
     """All shapes; returns the two rows taken at the serve path's shapes,
     K3's timed rows at ``hybrid``'s shared block (G=1), B=8 S=2048, a
     32k-token cache at ``long_cfg``'s heads and the ``vlm`` and ``moe``
-    paths' decode calls, and K1's timed rows at those two paths' prefill."""
+    paths' decode calls, and K1's timed rows at the ``vlm``, ``moe`` and
+    ``mla`` paths' prefill (the last at MLA's (192, 128) head dims)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -673,6 +707,26 @@ def phase_checks(cfg, hybrid, long_cfg, vlm, moe) -> tuple[dict, dict, dict, dic
     rows.append(check_flash_decode(gen, b=BATCH, h=moe.n_heads, kvh=moe.n_kv_heads,
                                    d=moe.head_dim, s=MAX_LEN,
                                    kv_len=PROMPT_LEN + FAMILY_GEN_STEPS - 1, dtype=fp32))
+    # MLA's prefill (deepseek-v2-236b: q/k 192, v 128, G=1), then its awkward
+    # shapes at the same head dims, all timed: a ragged length, Sq != Skv,
+    # G=4, fp32; on a generator of their own, so the rows above keep their
+    # inputs
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dims = mla_dims(mla)
+    fa_models[f"{mla.name} MLA"] = check_flash_attention(
+        gen, b=BATCH, sq=PROMPT_LEN, skv=PROMPT_LEN, **dims, dtype=bf16, causal=True, timed=True)
+    rows.append(fa_models[f"{mla.name} MLA"])
+    d, dv = dims["d"], dims["dv"]
+    for kw in (
+        dict(b=2, sq=333, skv=333, h=8, kvh=8, dtype=bf16, causal=True),        # no tile multiple
+        dict(b=2, sq=200, skv=333, h=8, kvh=8, dtype=bf16, causal=False),       # Sq != Skv
+        dict(b=2, sq=384, skv=384, h=8, kvh=2, dtype=bf16, causal=True),        # G=4
+        dict(b=1, sq=300, skv=300, h=4, kvh=4, dtype=fp32, causal=True),
+    ):
+        rows.append(check_flash_attention(gen, **kw, d=d, dv=dv, timed=True))
+    # serve_mla's fp32 run: K1's fp32 instance at its heads
+    rows.append(check_flash_attention(gen, b=BATCH, sq=PROMPT_LEN, skv=PROMPT_LEN, **dims,
+                                      dtype=fp32, causal=True))
     for row in rows:
         emit({"phase": "checks", **row})
     return fa_path, fd_path, fd_more, fa_models
@@ -1278,11 +1332,14 @@ def phase_serve_vlm(cfg) -> dict:
     return total_launches(ker)
 
 
-def phase_serve_moe(full_cfg) -> dict:
-    """qwen3-moe-235b-a22b at full width and MOE_LAYERS layers (bf16), then
-    MOE_FP32_LAYERS layers in fp32: the prefill step and the engine, kernel
-    path (K1, K3 at D=128, G=16) against the naive path on the same weights,
-    with both paths' routing decisions."""
+def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) -> dict:
+    """A routed-expert model at full width, cut to ``n_layers`` layers (bf16),
+    then ``fp32_layers`` in fp32: the prefill step and the engine, kernel path
+    against the naive path on the same weights, with both paths' routing
+    decisions. ``serve_moe`` (qwen3-moe-235b-a22b, GQA: K1 prefill, K3
+    decode) and ``serve_mla`` (deepseek-v2-236b, MLA: K1 prefill at head
+    dims (192, 128), the absorbed decode with no kernel, a dense-FFN layer
+    first)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.models import LanguageModel
@@ -1297,10 +1354,10 @@ def phase_serve_moe(full_cfg) -> dict:
                             generator=torch.Generator(device="cuda").manual_seed(2))
     batches = {"prefill": {"tokens": prompts}}
 
-    def build(n_layers, dtype):
+    def build(n, dtype):
         free_memory()
         torch.cuda.reset_peak_memory_stats()
-        cfg = dataclasses.replace(full_cfg, n_layers=n_layers)
+        cfg = dataclasses.replace(full_cfg, n_layers=n)
         model = LanguageModel(cfg, impl="kernel")
         model.init(torch.Generator(device="cuda").manual_seed(0), dtype=dtype)
         naive = LanguageModel(cfg, impl="naive")
@@ -1308,21 +1365,26 @@ def phase_serve_moe(full_cfg) -> dict:
         return cfg, model, naive, torch.cuda.max_memory_allocated()
 
     def want(cfg):
+        # MLA's absorbed decode runs on the latent cache with no kernel
+        decode = 0 if cfg.use_mla else cfg.n_layers * drive_steps
         return {"prefill": {"flash_attention": cfg.n_layers, "flash_decode": 0},
-                "generate": {"flash_attention": 0, "flash_decode": cfg.n_layers * drive_steps}}
+                "generate": {"flash_attention": 0, "flash_decode": decode}}
+
+    def routed(cfg):
+        return cfg.n_layers - cfg.first_k_dense     # route calls a forward or decode step
 
     def routing(cfg, ker, ref):
         # the engine's prompt steps (teacher-forced, so both paths see the
         # same tokens); the steps after follow each path's own tokens
-        prompt_calls = PROMPT_LEN * cfg.n_layers
+        prompt_calls = PROMPT_LEN * routed(cfg)
         return {"prefill": routing_agreement(ker["routes"]["prefill"], ref["routes"]["prefill"],
-                                             cfg.n_layers),
+                                             routed(cfg)),
                 "engine_prompt": routing_agreement(ker["routes"]["generate"][:prompt_calls],
                                                    ref["routes"]["generate"][:prompt_calls],
-                                                   cfg.n_layers)}
+                                                   routed(cfg))}
 
-    # ---- bf16, MOE_LAYERS layers ----
-    cfg, model, naive, init_peak = build(MOE_LAYERS, torch.bfloat16)
+    # ---- bf16, n_layers layers ----
+    cfg, model, naive, init_peak = build(n_layers, torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
     ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
     peak = torch.cuda.max_memory_allocated()
@@ -1333,17 +1395,18 @@ def phase_serve_moe(full_cfg) -> dict:
     # compare attention's two paths
     ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS, replay=ker["routes"])
     timed = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
-    check_drives("serve_moe", cfg, ker, ref, timed, want(cfg), FAMILY_GEN_STEPS)
+    check_drives(phase, cfg, ker, ref, timed, want(cfg), FAMILY_GEN_STEPS)
     agree = routing(cfg, ker, ref)
     tokens = BATCH * PROMPT_LEN
     dropped = dropped_assignments(ker["routes"]["prefill"], cfg)
     if any(dropped_assignments(ker["routes"]["generate"], cfg)):
-        raise AssertionError("serve_moe: a decode step (4 tokens, capacity 8) dropped an assignment")
+        raise AssertionError(f"{phase}: a decode step ({BATCH} tokens, capacity "
+                             f"{_capacity(BATCH, cfg)}) dropped an assignment")
     # the prefill step packs 2048 tokens against one capacity, a decode step 4:
     # the engine is held against a prefill step that drops nothing
     # (capacity_factor = E / k) and routes each token as the engine's prompt
-    # steps did (a call a step and layer, B tokens each)
-    L = cfg.n_layers
+    # steps did (a call a step and routed layer, B tokens each)
+    L = routed(cfg)
     prompt_routes = ker["routes"]["generate"][:PROMPT_LEN * L]
     engine_routes = [torch.stack(prompt_routes[i::L], dim=1).reshape(tokens, cfg.top_k)
                      for i in range(L)]
@@ -1354,23 +1417,31 @@ def phase_serve_moe(full_cfg) -> dict:
         no_drop_logits = make_prefill_step(no_drops)(batches["prefill"])[:, 0].float()
     kl, rl = ker["logits"], ref["logits"]
     errs = {
-        "prefill_kernel_vs_naive": logits_agree("moe: prefill step, kernel vs naive",
+        "prefill_kernel_vs_naive": logits_agree(f"{phase}: prefill step, kernel vs naive",
                                                 kl["prefill"], rl["prefill"]),
-        "engine_kernel_vs_naive": logits_agree("moe: engine, kernel vs naive", kl["engine"],
+        "engine_kernel_vs_naive": logits_agree(f"{phase}: engine, kernel vs naive", kl["engine"],
                                                rl["engine"]),
         "engine_vs_prefill_no_drops": logits_agree(
-            "moe: engine vs prefill step without drops, its routes (kernel path)",
+            f"{phase}: engine vs prefill step without drops, its routes (kernel path)",
             kl["engine"], no_drop_logits),
     }
-    row = {"phase": "serve_moe", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "reduced": f"depth {cfg.n_layers} of {full_cfg.n_layers} layers (one MoE layer is "
-                      "2.42 B parameters); full width", "dtype": "bfloat16",
-           "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "D": cfg.head_dim},
+    heads = {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "D": cfg.head_dim}
+    if cfg.use_mla:
+        heads.update(kv_lora=cfg.kv_lora_rank, q_lora=cfg.q_lora_rank, rope=cfg.rope_head_dim,
+                     v=cfg.v_head_dim, k1_head_dims=[cfg.head_dim + cfg.rope_head_dim,
+                                                     cfg.v_head_dim])
+    kd = cfg.first_k_dense
+    row = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": f"depth {cfg.n_layers} of {full_cfg.n_layers} layers"
+                      + (f" ({kd} dense-FFN, {L} MoE)" if kd else "") + "; full width",
+           "dtype": "bfloat16", "heads": heads,
            "experts": {"E": cfg.n_experts, "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff,
+                       "shared": cfg.n_shared_experts,
                        "capacity_prefill": _capacity(tokens, cfg),
                        "capacity_decode": _capacity(BATCH, cfg)},
            "n_params": count_params(model.specs()), "batch": BATCH, "prompt_len": PROMPT_LEN,
            "gen_steps": FAMILY_GEN_STEPS, "max_len": MAX_LEN, "launches": ker["launches"],
+           "cache": {k: list(v.shape) for k, v in timed["engine"].cache.items()},
            "naive_routes": "the kernel path's, replayed",
            "routing_agreement": agree,
            "prefill_dropped_assignments": {"by_layer": dropped, "of": tokens * cfg.top_k,
@@ -1383,27 +1454,32 @@ def phase_serve_moe(full_cfg) -> dict:
     launches = total_launches(ker)
     del model, naive, no_drops, ker, ref, timed
 
-    # ---- fp32, MOE_FP32_LAYERS layers: each path routes for itself ----
-    cfg32, model, naive, init_peak32 = build(MOE_FP32_LAYERS, torch.float32)
+    # ---- fp32, fp32_layers layers: each path routes for itself ----
+    cfg32, model, naive, init_peak32 = build(fp32_layers, torch.float32)
     ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
     ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
-    check_launches("serve_moe fp32", ker, ref, want(cfg32))
+    check_launches(f"{phase} fp32", ker, ref, want(cfg32))
     kl, rl = ker["logits"], ref["logits"]
     row["fp32"] = {
         "n_layers": cfg32.n_layers, "n_params": count_params(model.specs()), "tol": LOGIT_TOL_FP32,
         "launches": ker["launches"], "routing_agreement": routing(cfg32, ker, ref),
         "prefill_dropped_assignments": dropped_assignments(ker["routes"]["prefill"], cfg32),
         "logit_max_abs_diff": {
-            "prefill_kernel_vs_naive": logits_agree("moe fp32: prefill step, kernel vs naive",
+            "prefill_kernel_vs_naive": logits_agree(f"{phase} fp32: prefill step, kernel vs naive",
                                                     kl["prefill"], rl["prefill"],
                                                     LOGIT_TOL_FP32, LOGIT_TOL_FP32),
-            "engine_kernel_vs_naive": logits_agree("moe fp32: engine, kernel vs naive",
+            "engine_kernel_vs_naive": logits_agree(f"{phase} fp32: engine, kernel vs naive",
                                                    kl["engine"], rl["engine"],
                                                    LOGIT_TOL_FP32, LOGIT_TOL_FP32)},
         "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
         "prefill_ms": ker["seconds"]["prefill"] * 1e3,
         "decode_ms_per_step": ker["seconds"]["generate"] * 1e3 / drive_steps,
         "init_max_memory_allocated_bytes": init_peak32}
+    # each path routes for itself: in fp32 every token must reach the same experts
+    for part, agreement in row["fp32"]["routing_agreement"].items():
+        if agreement["decision_share"] != 1.0:
+            raise AssertionError(f"{phase} fp32: the two paths routed {part} differently: "
+                                 f"{agreement}")
     row["phase_s"] = time.perf_counter() - t_start
     emit(row)
     return launches
@@ -1622,6 +1698,13 @@ def main() -> int:
     if len(k3_bf16) != 3 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                 for r in k3_bf16.values()):
         raise AssertionError(f"K3's bf16 instances must build without spills: {k3_bf16}")
+    # K1 at MLA's head dims: both instances built, the bf16 one without
+    # spills (Q's fragments read from shared memory each KV tile)
+    k1_mla = {n: ptxas.get(n) for n in ("attn_fwd_mma<192,128>", "attn_fwd_fma<192,128>")}
+    if None in k1_mla.values() or any(k1_mla["attn_fwd_mma<192,128>"].get(key, 1)
+                                      for key in ("spill_stores", "spill_loads")):
+        raise AssertionError(f"K1's (192, 128) instances must build, bf16 without spills: "
+                             f"{k1_mla}")
     k5_mma = {n: r for n, r in ptxas.items() if n.startswith("ssd_chunk_scan_mma")}
     if len(k5_mma) != 6 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                for r in k5_mma.values()):
@@ -1629,15 +1712,16 @@ def main() -> int:
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     emit(phase_occupancy(cfg))
-    vlm, moe = configs.get(VLM_ARCH), configs.get(MOE_ARCH)
-    fa, fd, fd_more, fa_models = phase_checks(cfg, hybrid, configs.get(LONG_ARCH), vlm, moe)
+    vlm, moe, mla = configs.get(VLM_ARCH), configs.get(MOE_ARCH), configs.get(MLA_ARCH)
+    fa, fd, fd_more, fa_models = phase_checks(cfg, hybrid, configs.get(LONG_ARCH), vlm, moe, mla)
     fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
     train_launches = phase_train(cfg)
     vlm_launches = phase_serve_vlm(vlm)
-    moe_launches = phase_serve_moe(moe)
+    moe_launches = phase_serve_routed("serve_moe", moe, MOE_LAYERS, MOE_FP32_LAYERS)
+    mla_launches = phase_serve_routed("serve_mla", mla, MLA_LAYERS, MLA_FP32_LAYERS)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -1663,7 +1747,7 @@ def main() -> int:
     def by_path(name):
         return {"serve": launches.get(name, 0), "serve_hybrid": hybrid_launches.get(name, 0),
                 "serve_vlm": vlm_launches.get(name, 0), "serve_moe": moe_launches.get(name, 0),
-                "train": train_launches.get(name, 0)}
+                "serve_mla": mla_launches.get(name, 0), "train": train_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

@@ -1,7 +1,8 @@
 """Architecture registry: ``get(arch_id)`` resolves ``--arch`` flags.
 
-Holds the dense GQA family, the GQA mixture-of-experts family
-(``qwen3-moe-235b-a22b``), the vision-language backbone (``internvl2-26b``),
+Holds the dense GQA family, the mixture-of-experts family with GQA
+attention (``qwen3-moe-235b-a22b``) and with MLA attention
+(``deepseek-v2-236b``), the vision-language backbone (``internvl2-26b``),
 the attention-free SSM family (``mamba2-1.3b``) and the Mamba-2 +
 shared-attention hybrid (``zamba2-1.2b``); the other architectures are added
 with the model families that run them.
@@ -16,10 +17,11 @@ from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE
 from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2
 from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2
 from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2
+from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (TINYLLAMA, YI_6B, MISTRAL_NEMO, GRANITE, QWEN3_MOE, MAMBA2, ZAMBA2,
-                        INTERNVL2)
+                        INTERNVL2, DEEPSEEK_V2)
 }
 
 

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel `_attn_kernel` / `flash_attention_pallas`
 // (src/repro/kernels/flash_attention.py:96 of the JAX reference package):
 //   O = softmax(scale * Q K^T [+ causal mask]) V   for grouped-query attention,
-//   q (B,Sq,H,D), k/v (B,Skv,KVH,D) -> o (B,Sq,H,D), plus lse (B,Sq,H) fp32,
+//   q (B,Sq,H,D), k (B,Skv,KVH,D), v (B,Skv,KVH,DV) -> o (B,Sq,H,DV), plus
+//   lse (B,Sq,H) fp32, at (D, DV) = (32, 32), (64, 64), (128, 128) and (192, 128),
 // with an online softmax (fp32 running max / sum / accumulator), so the
 // (Sq x Skv) scores never reach device memory. `lse` (natural log) is a second
 // output that the TPU forward did not have: the backward kernels read it.
@@ -20,6 +21,24 @@
 // K/V re-reads (by the G = H/KVH heads of a group and by every q-tile) are
 // left to the 50 MB L2, which holds all of k and v at these sizes.
 //
+// MLA (deepseek-v2-236b's prefill): q and k carry head dim D = 192 (128 of
+// the latent's per-head keys + 64 of the shared rope key), v DV = 128, with
+// H = KVH = 128 (G = 1) and scale 192^-0.5. At B=4, S=512, causal the 336.6
+// MB of q, k, v, o and lse take 0.100 ms at 3.35 TB/s against 0.044 ms for
+// the 43.0 GFLOP at 989 TFLOP/s: the bound is bytes. The (D, DV) instance
+// is the same pipeline templated on both widths: S = Q K^T is summed over D
+// (12 k-steps of 16 at 192), while the V ring, P V, the accumulator, the
+// softmax's rescale and the o epilogue run over DV; o is staged in the
+// warp's own Q rows, which have room since DV <= D. Shared memory at 2
+// stages is (64 + 2*64)(192 + 8) 2 B of Q and K plus 2*64(128 + 8) 2 B of V,
+// 111,616 B, so two blocks still share an SM (228 KB). Q's 12 A fragments
+// are NOT kept in registers there: beside 64 registers of accumulator and
+// 32 of a 64-key S tile they took the instance to 255 registers with 28 B
+// of spills (ptxas, on the card), so each KV tile ldmatrix-loads them from
+// the warp's own Q rows, which stay in shared memory until the epilogue.
+// The build's ptxas report must show no spill. The fp32 instance (192, 128)
+// takes 148,736 B of shared memory, one block an SM.
+//
 // Design (bf16), the pipeline of the backward's dq pass (K2a):
 //   * One 4-warp block per (64-row q-tile, query head, batch); warp w owns
 //     rows [16w, 16w+16). The KV loop is inside the block, the running max,
@@ -28,12 +47,12 @@
 //     tiles, so the launch hands out the longest blocks first and the short
 //     ones fill the tail instead of setting it.
 //   * Copies overlap products: Q comes by cp.async with the first stages of
-//     a ring of K/V tiles (3 stages at D <= 64, 2 at D = 128); tile j+ST-1 is
+//     a ring of K/V tiles (3 stages at D <= 64, 2 at D >= 128); tile j+ST-1 is
 //     in flight while tile j's two products run, so no tile's copy latency
 //     stands between two barriers. Rows past the lengths load as zeros
 //     (src-size 0).
 //   * Operands come through ldmatrix (`mma_tile.cuh`, shared with K2): Q's A
-//     fragments once, into registers, at every D; K's B fragments by plain
+//     fragments once, into registers, at D <= 128; K's B fragments by plain
 //     ldmatrix, one x4 load for two mma; V's by ldmatrix.trans.
 //   * Masks only where a tile needs one (`softmax_step<MASK>`, in
 //     `mma_tile.cuh`, shared with K3): the causal
@@ -43,10 +62,11 @@
 //   * Scores are scaled once by scale * log2(e) and exponentiated by ex2;
 //     lse = m ln 2 + ln l comes out in natural log, as K2a/K2b read it.
 //   * o is normalised, staged in the warp's own rows of the (then free) Q
-//     buffer, and written in 16-byte pieces, one row of D at a time, not as
+//     buffer, and written in 16-byte pieces, one row of DV at a time, not as
 //     4-byte pieces scattered over 8 rows.
 //   * At most 168 registers at D <= 64, so 3 blocks (64 KB of shared memory
-//     each at D = 64) share an SM; 2 blocks at D = 128. No spills.
+//     each at D = 64) share an SM; 2 blocks at D = 128 and at (192, 128). No
+//     spills.
 // Rows past Sq are computed on zeros and never written. The causal mask is
 // top-left aligned (key index <= query index, no offset), as on the model
 // path; the wrapper only admits `causal` with Sq == Skv. NEG_INF = -1e30 and
@@ -74,9 +94,11 @@ constexpr int BM = 64;                    // fp32: query rows per block
 
 template <int D> __host__ __device__ constexpr int fwd_stages() { return D <= 64 ? 3 : 2; }
 
-template <int D>
+// Q's rows and each stage's K rows at D + 8 bf16, its V rows at DV + 8.
+template <int D, int DV>
 constexpr size_t fwd_smem() {
-  return (size_t)(MMA_BM + fwd_stages<D>() * 2 * BN) * (D + 8) * sizeof(__nv_bfloat16);
+  return ((size_t)(MMA_BM + fwd_stages<D>() * BN) * (D + 8) +
+          (size_t)fwd_stages<D>() * BN * (DV + 8)) * sizeof(__nv_bfloat16);
 }
 
 // ---------------------------------------------------------------------------
@@ -85,14 +107,16 @@ constexpr size_t fwd_smem() {
 
 // In the mma fragment layout thread (g = lane/4, t = lane%4) of warp w holds
 // query rows 16w + g and 16w + g + 8 of the block's tile.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 3 : 2)
 attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              float* __restrict__ lse, int Sq, int Skv, int H, int KVH, float scale,
              int causal) {
   constexpr int LD = D + 8;   // +16 bytes a row: ldmatrix rows hit distinct banks
-  constexpr int ST = fwd_stages<D>(), NT = BN / 8;
+  constexpr int LDV = DV + 8;
+  constexpr int ST = fwd_stages<D>(), NT = BN / 8, STAGE = BN * (LD + LDV);
+  static_assert(DV <= D, "o is staged in the warp's own rows of Q");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ring = Qs + MMA_BM * LD;   // ST stages of (K, V)
@@ -104,14 +128,14 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const __nv_bfloat16* kb = k + (size_t)b * Skv * KVH * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * KVH * D;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * KVH * DV;
   const int n_end = causal ? min(Skv, m0 + MMA_BM) : Skv;   // tiles above the diagonal skipped
   const int ntiles = (n_end + BN - 1) / BN;
 
   auto load_kv = [&](int j) {
-    __nv_bfloat16* Ks = ring + (j % ST) * 2 * BN * LD;
+    __nv_bfloat16* Ks = ring + (j % ST) * STAGE;
     cp_async_tile<D, LD, BN, MMA_THREADS>(Ks, kb, j * BN, Skv, KVH, kvh);
-    cp_async_tile<D, LD, BN, MMA_THREADS>(Ks + BN * LD, vb, j * BN, Skv, KVH, kvh);
+    cp_async_tile<DV, LDV, BN, MMA_THREADS>(Ks + BN * LD, vb, j * BN, Skv, KVH, kvh);
   };
   cp_async_tile<D, LD, MMA_BM, MMA_THREADS>(Qs, q + (size_t)b * Sq * H * D, m0, Sq, H, h);
   cp_async_commit();
@@ -121,17 +145,22 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     cp_async_commit();
   }
 
-  // Q's A fragments stay in registers for the whole KV loop.
+  // Q's A fragments stay in registers for the whole KV loop up to D = 128;
+  // at D = 192 they would spill (255 registers, 28 B), so each KV tile
+  // reads them from the warp's own Q rows in shared memory instead.
+  constexpr bool Q_IN_REGS = D <= 128;
   __nv_bfloat16* q_rows = Qs + warp * 16 * LD;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
   cp_async_wait<ST - 1>();               // Q is in
   __syncthreads();
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], q_rows, kk, lane);
+    for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], q_rows, kk, lane);
+  }
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF};
   float l_run[2] = {0.f, 0.f};
   const int row_a = m0 + warp * 16 + g;  // rows of acc[.][0..1]; acc[.][2..3] are row_a + 8
@@ -142,20 +171,23 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     __syncthreads();                     // everyone's are; the stage of tile j - 1 is free
     if (j + ST - 1 < ntiles) load_kv(j + ST - 1);
     cp_async_commit();
-    const __nv_bfloat16* Ks = ring + (j % ST) * 2 * BN * LD;
+    const __nv_bfloat16* Ks = ring + (j % ST) * STAGE;
     const __nv_bfloat16* Vs = Ks + BN * LD;
 
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    mma_abt<D, LD, NT>(s, qf, Ks, lane);           // S = Q K^T
+    if constexpr (Q_IN_REGS)
+      mma_abt<D, LD, NT>(s, qf, Ks, lane);         // S = Q K^T
+    else
+      mma_abt<D, LD, NT>(s, q_rows, Ks, lane);
 
     const int n0 = j * BN;
     if ((causal && n0 + BN - 1 > m0) || n0 + BN > Skv)   // the diagonal tile; the ragged last
-      softmax_step<true, NT, D>(s, acc, m_run, l_run, scale_log2, row_a, n0 + t * 2, Skv, causal);
+      softmax_step<true, NT, DV>(s, acc, m_run, l_run, scale_log2, row_a, n0 + t * 2, Skv, causal);
     else
-      softmax_step<false, NT, D>(s, acc, m_run, l_run, scale_log2, row_a, n0 + t * 2, Skv, causal);
-    mma_xt<D, LD, BN / 16>(acc, s, Vs, lane);      // acc += P V
+      softmax_step<false, NT, DV>(s, acc, m_run, l_run, scale_log2, row_a, n0 + t * 2, Skv, causal);
+    mma_xt<DV, LDV, BN / 16>(acc, s, Vs, lane);    // acc += P V
   }
 
   // Epilogue: finish the row sums over the quad, write lse, normalise o into
@@ -174,17 +206,17 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(q_rows + (g + r * 8) * LD + i * 8 + t * 2) =
           pack_bf16(acc[i][2 * r] * inv[r], acc[i][2 * r + 1] * inv[r]);
   }
   __syncwarp();                          // every lane's rows are staged
-  constexpr int CHUNKS = D / 8;          // 16-byte pieces a row
+  constexpr int CHUNKS = DV / 8;         // 16-byte pieces a row
 #pragma unroll
   for (int j = 0; j < 16 * CHUNKS / 32; ++j) {
     const int i = lane + j * 32, r = i / CHUNKS, c = (i % CHUNKS) * 8, row = m0 + warp * 16 + r;
     if (row < Sq)
-      *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + row) * H + h) * D + c) =
+      *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + row) * H + h) * DV + c) =
           *reinterpret_cast<const uint4*>(q_rows + r * LD + c);
   }
 }
@@ -194,8 +226,8 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 // ---------------------------------------------------------------------------
 
 // 256 threads as a 16x16 grid; thread (ty, tx) owns rows ty+16i (i<4) and, for
-// the scores, keys tx+16j (j<4), for the output, columns tx+16j (j<D/16).
-template <int D>
+// the scores, keys tx+16j (j<4), for the output, columns tx+16j (j<DV/16).
+template <int D, int DV>
 __global__ void __launch_bounds__(256)
 attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
@@ -205,8 +237,8 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);   // [BM][D]
   float* Ks = Qs + BM * D;                          // [BN][LDK]
-  float* Vs = Ks + BN * LDK;                        // [BN][D]
-  float* Ss = Vs + BN * D;                          // [BM][LDS] scores, then probabilities
+  float* Vs = Ks + BN * LDK;                        // [BN][DV]
+  float* Ss = Vs + BN * DV;                         // [BM][LDS] scores, then probabilities
   float* m_s = Ss + BM * LDS;                       // [BM] running max
   float* l_s = m_s + BM;                            // [BM] running sum
   float* a_s = l_s + BM;                            // [BM] rescale factor of this tile
@@ -216,7 +248,7 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = h / (H / KVH);
   const float* qb = q + (size_t)b * Sq * H * D;
   const float* kb = k + (size_t)b * Skv * KVH * D;
-  const float* vb = v + (size_t)b * Skv * KVH * D;
+  const float* vb = v + (size_t)b * Skv * KVH * DV;
 
   for (int idx = tid; idx < BM * D; idx += 256) {
     int r = idx / D, d = idx % D, row = m0 + r;
@@ -224,11 +256,11 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (tid < BM) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
 
-  float acc[4][D / 16];
+  float acc[4][DV / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DV / 16; ++j) acc[i][j] = 0.f;
 
   const int n_end = causal ? min(Skv, m0 + BM) : Skv;
   for (int n0 = 0; n0 < n_end; n0 += BN) {
@@ -238,8 +270,13 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
       bool ok = row < Skv;
       size_t off = ((size_t)row * KVH + kvh) * D + d;
       Ks[r * LDK + d] = ok ? kb[off] : 0.f;
-      Vs[idx] = ok ? vb[off] : 0.f;
+      if (DV == D) Vs[idx] = ok ? vb[off] : 0.f;
     }
+    if (DV != D)
+      for (int idx = tid; idx < BN * DV; idx += 256) {
+        int r = idx / DV, d = idx % DV, row = n0 + r;
+        Vs[idx] = row < Skv ? vb[((size_t)row * KVH + kvh) * DV + d] : 0.f;
+      }
     __syncthreads();
 
     float s[4][4];
@@ -303,19 +340,19 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       float alpha = a_s[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < DV / 16; ++j) acc[i][j] *= alpha;
     }
 #pragma unroll 4
     for (int kk = 0; kk < BN; ++kk) {
-      float pv[4], vv[D / 16];
+      float pv[4], vv[DV / 16];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty + 16 * i) * LDS + kk];
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
+      for (int j = 0; j < DV / 16; ++j) vv[j] = Vs[kk * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < DV / 16; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
   __syncthreads();
@@ -328,37 +365,38 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
     float inv = 1.f / l;
     size_t base = ((size_t)b * Sq + row) * H + h;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) o[base * D + tx + 16 * j] = acc[i][j] * inv;
+    for (int j = 0; j < DV / 16; ++j) o[base * DV + tx + 16 * j] = acc[i][j] * inv;
     if (tx == 0) lse[base] = m_s[r] + logf(l);
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Sq, int Skv, int H, int KVH, float scale, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma<D>,
+  constexpr size_t smem = fwd_smem<D, DV>();
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + MMA_BM - 1) / MMA_BM);
-  attn_fwd_mma<D><<<grid, MMA_THREADS, smem, stream>>>(
+  attn_fwd_mma<D, DV><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KVH,
       scale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Sq, int Skv, int H, int KVH, float scale, int causal,
                        cudaStream_t stream) {
-  size_t smem = (size_t)(BM * D + BN * (D + 1) + BN * D + BM * (BN + 1) + 3 * BM) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_fma<D>,
+  size_t smem =
+      (size_t)(BM * D + BN * (D + 1) + BN * DV + BM * (BN + 1) + 3 * BM) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_fma<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BM - 1) / BM, H, B);
-  attn_fwd_fma<D><<<grid, 256, smem, stream>>>(
+  attn_fwd_fma<D, DV><<<grid, 256, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, Sq, Skv, H, KVH, scale, causal);
   return cudaGetLastError();
@@ -367,27 +405,27 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, flo
 }  // namespace
 
 // Returns 0, a cudaError_t, or -1 for a shape or type this file has no kernel
-// for (head dims 32, 64, 128; H a multiple of KVH; B, H and the q-tiles within
-// the grids' limits). All tensors contiguous in the layouts named at the top.
+// for ((D, Dv) one of (32, 32), (64, 64), (128, 128), (192, 128); H a multiple
+// of KVH; B, H and the q-tiles within the grids' limits). All tensors
+// contiguous in the layouts named at the top.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Skv, int H, int KVH, int D,
-                                   float scale, int causal, int is_bf16, void* stream) {
+                                   int Dv, float scale, int causal, int is_bf16, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH != 0 || B > 65535 || H > 65535) return -1;
   // the bf16 grid is (B*H, q-tiles): x up to 2^31 - 1, y up to 65535
   if (is_bf16 && ((long long)B * H > 0x7fffffffLL || (Sq + MMA_BM - 1) / MMA_BM > 65535))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-#define DISPATCH(FN)                                                                         \
-  switch (D) {                                                                               \
-    case 32: return (int)FN<32>(q, k, v, o, lse_f, B, Sq, Skv, H, KVH, scale, causal, st);   \
-    case 64: return (int)FN<64>(q, k, v, o, lse_f, B, Sq, Skv, H, KVH, scale, causal, st);   \
-    case 128: return (int)FN<128>(q, k, v, o, lse_f, B, Sq, Skv, H, KVH, scale, causal, st); \
-    default: return -1;                                                                      \
-  }
+#define CASE(FN, DQ, DO)                                                              \
+  if (D == DQ && Dv == DO)                                                            \
+    return (int)FN<DQ, DO>(q, k, v, o, lse_f, B, Sq, Skv, H, KVH, scale, causal, st);
+#define DISPATCH(FN) \
+  CASE(FN, 32, 32) CASE(FN, 64, 64) CASE(FN, 128, 128) CASE(FN, 192, 128) return -1;
   if (is_bf16) {
     DISPATCH(launch_mma)
   }
   DISPATCH(launch_fma)
 #undef DISPATCH
+#undef CASE
 }

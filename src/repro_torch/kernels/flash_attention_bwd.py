@@ -30,7 +30,24 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, NEG_INF, check_inputs
+from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.kernels.flash_attention import check_inputs as check_forward_inputs
+
+HEAD_DIMS = (32, 64, 128)       # head dims the CUDA source instantiates (Dv == D)
+# MLA's shapes (v's head dim below q's and k's, D = 192): K1 runs them, the
+# backward not yet
+MLA_TRAINING = "ROADMAP.md queue 2, E1's training half (K2a/K2b at Dv != D and D = 192)"
+
+
+def check_inputs(q, k, v, causal: bool) -> None:
+    """K1's requirements, and Dv == D with D != 192: MLA's shapes are
+    refused by the kernels and the plain versions alike until the backward
+    is built for them."""
+    check_forward_inputs(q, k, v, causal)
+    d, dv = q.shape[-1], v.shape[-1]
+    if dv != d or d == 192:
+        raise NotImplementedError(f"attention backward at q/k head dim {d}, v head dim {dv} "
+                                  f"(MLA) is not ported yet: {MLA_TRAINING}")
 
 
 def attention_delta(out, dout):
@@ -63,6 +80,7 @@ def _plain_p_ds(q, k, v, out, lse, dout, causal: bool, scale: float):
 def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, *, causal: bool = True,
                                  scale: float | None = None):
     """Plain version of K2a, fp32 inside: dq in q's dtype."""
+    check_inputs(q, k, v, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     _, ds, _, _ = _plain_p_ds(q, k, v, out, lse, dout, causal, scale)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
@@ -73,6 +91,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, *, causal: bool = Tru
                                   scale: float | None = None):
     """Plain version of K2b, fp32 inside: (dk, dv) in k's and v's dtypes,
     each summed over the G query heads of a KV head."""
+    check_inputs(q, k, v, causal)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     p, ds, qg, dog = _plain_p_ds(q, k, v, out, lse, dout, causal, scale)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
@@ -219,7 +238,8 @@ def _launch_args(q, k, causal, scale):
             int(q.dtype == torch.bfloat16))
 
 
-def _check_cuda(q, k, v, dout, lse, delta):
+def _check_cuda(q, k, v, dout, lse, delta, causal):
+    check_inputs(q, k, v, causal)
     build.check_cuda_tensors(q=q, k=k, v=v, dout=dout)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
@@ -232,7 +252,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                            scale: float | None = None):
     """Launches K2a on the current stream: dq. CUDA tensors, bf16 or fp32,
     contiguous; ``lse`` and ``delta`` (B,Sq,H) fp32."""
-    _check_cuda(q, k, v, dout, lse, delta)
+    _check_cuda(q, k, v, dout, lse, delta, causal)
     plan = _plan_for(q, k, causal)
     dq = torch.empty_like(q)
     lib = build.load_library()
@@ -249,7 +269,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
                             scale: float | None = None):
     """Launches K2b on the current stream: (dk, dv). Arguments as K2a's."""
-    _check_cuda(q, k, v, dout, lse, delta)
+    _check_cuda(q, k, v, dout, lse, delta, causal)
     plan = _plan_for(q, k, causal)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

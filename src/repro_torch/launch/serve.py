@@ -6,12 +6,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --fused-ffn \
         --batch 4 --prompt-len 512 --gen 16 --max-len 1024
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b-smoke --device cpu
+
 Runs on the card; ``--device cpu`` runs the same path with the kernels' plain
 versions (for the smoke configs, ``--arch tinyllama-1.1b-smoke`` or
 ``--arch zamba2-1.2b-smoke``). ``--fused-ffn`` sends every SwiGLU MLP through
 the fused kernel (K4). The engine's cache is whatever the model's
 ``init_cache`` returns: KV for attention layers, conv and SSM state for
-Mamba-2 layers.
+Mamba-2 layers, the latent ``ckv`` and rope key ``krope`` for MLA layers
+(``deepseek-v2-236b``).
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from repro_torch.serve.step import make_decode_step
 
 
 class ServingEngine:
-    """Minimal batched engine over the decode step. The cache (KV, or conv and
-    SSM state) lives on the model's device, in the model's dtype except the
+    """Minimal batched engine over the decode step. The cache (KV, MLA's
+    latent, or conv and SSM state) lives on the model's device, in the model's dtype except the
     fp32 SSM state, and is updated in place."""
 
     def __init__(self, model: LanguageModel, batch: int, max_len: int,
@@ -87,7 +90,9 @@ class ServingEngine:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="a name of configs.ARCHS (e.g. deepseek-v2-236b, MLA), "
+                         "with '-smoke' for its CPU-sized variant")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

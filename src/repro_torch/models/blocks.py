@@ -11,12 +11,23 @@ from repro_torch.models.base import Specs
 from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
 
 
-# ---- dense / GQA -----------------------------------------------------------------
+# ---- dense ---------------------------------------------------------------------------
+
+def attn_specs(cfg: ModelConfig) -> Specs:
+    """The attention's parameters: MLA's where ``cfg.use_mla``, else GQA's."""
+    return attn.mla_specs(cfg) if cfg.use_mla else attn.gqa_specs(cfg)
+
+
+def attention(params, cfg: ModelConfig, x, positions, causal=True, impl="kernel"):
+    """Full-sequence attention: MLA where ``cfg.use_mla``, else GQA."""
+    fn = attn.mla_attention if cfg.use_mla else attn.gqa_attention
+    return fn(params, cfg, x, positions, causal=causal, impl=impl)
+
 
 def dense_block_specs(cfg: ModelConfig) -> Specs:
     return {
         "ln1": rmsnorm_specs(cfg.d_model),
-        "attn": attn.gqa_specs(cfg),
+        "attn": attn_specs(cfg),
         "ln2": rmsnorm_specs(cfg.d_model),
         "ffn": ffn_specs(cfg.d_model, cfg.d_ff),
     }
@@ -25,19 +36,18 @@ def dense_block_specs(cfg: ModelConfig) -> Specs:
 def dense_block(params, cfg: ModelConfig, x, positions, impl="kernel",
                 causal=True, fused=False):
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    h = attn.gqa_attention(params["attn"], cfg, h, positions, causal=causal,
-                           impl=impl)
+    h = attention(params["attn"], cfg, h, positions, causal=causal, impl=impl)
     x = x + h
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + ffn(params["ffn"], h, fused=fused)
 
 
-# ---- MoE (GQA attention) -----------------------------------------------------------
+# ---- MoE ---------------------------------------------------------------------------
 
 def moe_block_specs(cfg: ModelConfig, dense_ffn: bool) -> Specs:
     s: Specs = {
         "ln1": rmsnorm_specs(cfg.d_model),
-        "attn": attn.gqa_specs(cfg),
+        "attn": attn_specs(cfg),
         "ln2": rmsnorm_specs(cfg.d_model),
     }
     if dense_ffn:
@@ -50,7 +60,7 @@ def moe_block_specs(cfg: ModelConfig, dense_ffn: bool) -> Specs:
 def moe_block(params, cfg: ModelConfig, x, positions, impl="kernel", fused=False):
     """Returns (x, aux_loss): a dense-FFN layer's aux is 0."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    h = attn.gqa_attention(params["attn"], cfg, h, positions, impl=impl)
+    h = attention(params["attn"], cfg, h, positions, impl=impl)
     x = x + h
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if "ffn" in params:

@@ -12,13 +12,15 @@ The module holds its parameters as one nested ``ParameterDict`` with the
 reference's keys and stacked shapes (layer parameters carry a leading
 ``layers`` axis), so a parameter tree converts 1:1. The ``dense`` (GQA),
 ``vlm`` (the dense family, whose batch may carry ``patch_embeds`` for its
-first positions), ``moe`` (GQA attention with routed experts, after
-``first_k_dense`` dense-FFN layers), ``ssm`` (Mamba-2) and ``hybrid``
-(Mamba-2 with one shared attention + MLP block after every
-``attn_every``-th layer, Zamba-2) families are assembled; MLA attention is
-not. ``impl="kernel"`` runs attention through K1/K3 and the SSD scan through
-K5; ``fused_ffn=True`` runs every SwiGLU MLP but the routed experts through
-K4 (forward only).
+first positions), ``moe`` (routed experts, after ``first_k_dense``
+dense-FFN layers), ``ssm`` (Mamba-2) and ``hybrid`` (Mamba-2 with one shared
+attention + MLP block after every ``attn_every``-th layer, Zamba-2) families
+are assembled. Attention is GQA, or MLA where ``cfg.use_mla``
+(deepseek-v2-236b): its cache holds the latent ``ckv`` and the shared rope
+key ``krope`` a layer, and its decode step is the absorbed form.
+``impl="kernel"`` runs attention through K1 (prefill, MLA's too) and K3 (GQA
+decode) and the SSD scan through K5; ``fused_ffn=True`` runs every SwiGLU MLP
+but the routed experts through K4 (forward only).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.attention import IMPLS, gqa_decode
+from repro_torch.models.attention import IMPLS, gqa_decode, mla_decode
 from repro_torch.models.base import Specs, axes_tree, init_params, stack_specs
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_specs,
                                        ffn, logits_for_tokens, rmsnorm, rmsnorm_specs)
@@ -60,8 +62,15 @@ def _maybe_remat(fn, remat: str, *args):
 
 # where what is not assembled yet stands in ROADMAP.md, queue 1
 FAMILY_ROADMAP_ITEM = {"audio": "item 11 (encoder-decoder)"}
-MLA_ROADMAP_ITEM = "item 9b (MLA)"
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+
+
+def _layer_groups(cfg: ModelConfig) -> list[tuple[str, int, int]]:
+    """The stacked layer groups in order, as (params key, first layer,
+    count): a moe config's ``first_k_dense`` dense-FFN layers
+    (``dense_layers``), then ``layers``."""
+    kd = cfg.first_k_dense if cfg.family == "moe" else 0
+    return ([("dense_layers", 0, kd)] if kd else []) + [("layers", kd, cfg.n_layers - kd)]
 
 
 def _to_module(tree: dict) -> nn.ParameterDict:
@@ -92,9 +101,6 @@ class LanguageModel(nn.Module):
             raise ValueError(f"impl {impl!r} not one of {IMPLS}")
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not one of {REMATS}")
-        if cfg.use_mla:
-            raise NotImplementedError(f"MLA attention ({cfg.name}) is not ported yet: "
-                                      f"ROADMAP.md queue 1, {MLA_ROADMAP_ITEM}")
         if cfg.family not in FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
                                       f"ROADMAP.md queue 1, {FAMILY_ROADMAP_ITEM[cfg.family]}")
@@ -114,11 +120,8 @@ class LanguageModel(nn.Module):
         if cfg.family in ("dense", "vlm"):
             s["layers"] = stack_specs(blocks.dense_block_specs(cfg), cfg.n_layers)
         elif cfg.family == "moe":
-            kd = cfg.first_k_dense
-            if kd:
-                s["dense_layers"] = stack_specs(blocks.moe_block_specs(cfg, dense_ffn=True), kd)
-            s["layers"] = stack_specs(blocks.moe_block_specs(cfg, dense_ffn=False),
-                                      cfg.n_layers - kd)
+            for key, _, n in _layer_groups(cfg):
+                s[key] = stack_specs(blocks.moe_block_specs(cfg, key == "dense_layers"), n)
         else:
             s["layers"] = stack_specs(blocks.mamba_block_specs(cfg), cfg.n_layers)
         if cfg.family == "hybrid":
@@ -176,10 +179,7 @@ class LanguageModel(nn.Module):
                 return blocks.moe_block(p_, cfg, x_, positions, impl=self.impl,
                                         fused=self.fused_ffn)
 
-            groups = [("layers", cfg.n_layers - cfg.first_k_dense)]
-            if cfg.first_k_dense:
-                groups.insert(0, ("dense_layers", cfg.first_k_dense))
-            for key, n in groups:
+            for key, _, n in _layer_groups(cfg):
                 for p in _unbind_layers(params[key], n):
                     x, a = _maybe_remat(moe_body, self.remat, x, p)
                     aux = aux + a
@@ -217,10 +217,11 @@ class LanguageModel(nn.Module):
     # ------------------------------------------------------------------ cache --
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
         """Zeroed caches; dtype and device default to the parameters'. Dense,
-        vlm and moe: (L,B,S,KVH,D) ``k``/``v``. SSM: ``conv`` (L,B,kw-1,C)
-        and ``ssm`` (L,B,H,P,N), the SSM state always fp32. Hybrid: those, and
-        ``shared_k``/``shared_v`` (L // attn_every, B, S, KVH, D) for the
-        shared block's calls.
+        vlm and moe: (L,B,S,KVH,D) ``k``/``v``; with MLA instead ``ckv``
+        (L,B,S,kv_lora) and ``krope`` (L,B,S,rope_head_dim). SSM: ``conv``
+        (L,B,kw-1,C) and ``ssm`` (L,B,H,P,N), the SSM state always fp32.
+        Hybrid: those, and ``shared_k``/``shared_v`` (L // attn_every, B, S,
+        KVH, D) for the shared block's calls.
 
         A ``moe`` config with GQA attention and first_k_dense > 0 is refused:
         the reference's decode step scans ``layers`` (n_layers - first_k_dense
@@ -228,7 +229,7 @@ class LanguageModel(nn.Module):
         ``dense_layers`` (``models/lm.py:decode_step``), so it has no
         semantics to copy, and no decode step runs without this cache."""
         cfg = self.cfg
-        if cfg.family == "moe" and cfg.first_k_dense:
+        if cfg.family == "moe" and cfg.first_k_dense and not cfg.use_mla:
             raise NotImplementedError(
                 f"{cfg.name}: no decode step for a moe config with GQA attention and "
                 f"first_k_dense={cfg.first_k_dense}: the reference's scans the "
@@ -236,6 +237,10 @@ class LanguageModel(nn.Module):
                 "cache and skips the dense layers")
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
+        if cfg.use_mla:
+            shape = (cfg.n_layers, batch, max_len)
+            return {"ckv": torch.zeros(*shape, cfg.kv_lora_rank, dtype=dtype, device=device),
+                    "krope": torch.zeros(*shape, cfg.rope_head_dim, dtype=dtype, device=device)}
         if cfg.family in ("dense", "vlm", "moe"):
             shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -260,27 +265,35 @@ class LanguageModel(nn.Module):
     # ------------------------------------------------------------ decode step --
     def decode_step(self, cache, tokens, pos: int):
         """tokens: (B,1) int; pos: host int (current length). The cache is
-        written IN PLACE. Returns (logits (B,1,V), cache)."""
+        written IN PLACE. Returns (logits (B,1,V), cache). A moe config's
+        ``dense_layers`` run against cache layers [0, first_k_dense) and its
+        ``layers`` against the rest, as in the reference's MLA branch."""
         cfg, params = self.cfg, self.params
         x = embed(params["emb"], tokens)
-        for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
-            if cfg.family in ("dense", "vlm", "moe"):
-                x = self._attn_mlp_decode(p, x, cache["k"][i], cache["v"][i], pos)
-                continue
-            x, _, _ = blocks.mamba_block_decode(p, cfg, x, cache["conv"][i], cache["ssm"][i])
-            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                inv = i // cfg.attn_every
-                x = self._attn_mlp_decode(params["shared_attn"], x, cache["shared_k"][inv],
-                                          cache["shared_v"][inv], pos)
+        if cfg.family in ("dense", "vlm", "moe"):
+            ka, kb = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+            for key, off, n in _layer_groups(cfg):
+                for i, p in enumerate(_unbind_layers(params[key], n), start=off):
+                    x = self._attn_mlp_decode(p, x, cache[ka][i], cache[kb][i], pos)
+        else:
+            for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
+                x, _, _ = blocks.mamba_block_decode(p, cfg, x, cache["conv"][i],
+                                                    cache["ssm"][i])
+                if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                    inv = i // cfg.attn_every
+                    x = self._attn_mlp_decode(params["shared_attn"], x, cache["shared_k"][inv],
+                                              cache["shared_v"][inv], pos)
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return logits_for_tokens(params["emb"], h), cache
 
-    def _attn_mlp_decode(self, p, x, cache_k, cache_v, pos: int):
+    def _attn_mlp_decode(self, p, x, cache_a, cache_b, pos: int):
         """One token through an attention + MLP block (a dense or MoE layer,
-        or the hybrid's shared block); the caches are written in place."""
+        or the hybrid's shared block); the caches (``k``/``v``, or MLA's
+        ``ckv``/``krope``) are written in place."""
         cfg = self.cfg
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        o, _, _ = gqa_decode(p["attn"], cfg, h, cache_k, cache_v, pos, impl=self.impl)
+        attend = mla_decode if cfg.use_mla else gqa_decode
+        o, _, _ = attend(p["attn"], cfg, h, cache_a, cache_b, pos, impl=self.impl)
         x = x + o
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
         if "ffn" in p:

@@ -40,6 +40,7 @@ def test_every_module_is_checked():
                    "kernels/ssd_scan.py", "kernels/fused_ffn.py", "models/ssm.py",
                    "models/blocks.py", "configs/mamba2_1_3b.py", "configs/zamba2_1_2b.py",
                    "models/moe.py", "configs/qwen3_moe_235b_a22b.py", "configs/internvl2_26b.py",
+                   "configs/deepseek_v2_236b.py",
                    "serve/step.py", "launch/serve.py", "train/__init__.py", "train/optim.py",
                    "train/step.py", "data/pipeline.py", "launch/train.py"):
         assert needed in names
