@@ -8,11 +8,13 @@ Phases, one JSON object a line:
   build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
            with each kernel's registers and spill bytes as ptxas reports them
            (template instances named by their arguments, e.g.
-           attn_bwd_dkv_mma<128,32>); K3's bf16 instances, K5's mma
-           instances and K1's bf16 instance at MLA's head dims
-           (attn_fwd_mma<192,128>) must not spill
+           attn_bwd_dkv_mma<128,128,32>); K3's bf16 instances, K5's mma
+           instances and the bf16 instances at MLA's head dims of K1
+           (attn_fwd_mma<192,128>), K2a (attn_bwd_dq_mma<192,128,32>) and
+           K2b (attn_bwd_dkv_mma<192,128,16>) must not spill
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
-           training shape, with its plan
+           training shape and at MLA's (deepseek-v2-236b's heads, head dims
+           (192, 128)), with its plan
   checks   every kernel against its plain PyTorch version on the card, over
            the serving path's shapes and the awkward ones (ragged lengths,
            D=128, KVH=H, G=6, KVH=1, non-causal, fp32), with device times
@@ -30,7 +32,11 @@ Phases, one JSON object a line:
            G=6 and G=16, K2b's clusters of 6 and of 8 blocks walking 2 heads),
            each K1 and K2 launch repeated and required to agree bit for bit,
            each K2 row with its plan (tiles, cluster size); K1 and K2 also
-           timed at S=4096 (B=1) and at D=128 (yi-6b's heads, B=2, S=1024);
+           timed at S=4096 (B=1), at D=128 (yi-6b's heads, B=2, S=1024) and
+           at MLA's training shape (deepseek-v2-236b: B=4 S=1024
+           H=KVH=128, q/k 192, v 128; K2 beside `sdpa`'s backward, with the
+           kernels it ran named), and checked at MLA's head dims at S=333,
+           Sq=200 Skv=333 non-causal, G=4 and fp32 (K1 and K2 each);
            K1 and K3 also timed at the two D=128 models' serving shapes
            (internvl2-26b G=6, qwen3-moe-235b-a22b G=16: prefill B=4 S=512,
            decode kv_len 527); K1 at MLA's head dims (q/k 192, v 128):
@@ -106,11 +112,26 @@ Phases, one JSON object a line:
            All three rows: device ms (graph replay) and eager ms of the prefill
            and decode steps, idle shares, a torch.profiler breakdown of each
            step, peak memory (after init and while driving), phase seconds
+  train_mla  deepseek-v2-236b at full width, cut to 2 of its 60 layers (the
+           dense-FFN layer + 1 MoE layer, 5.36 B parameters), bf16, remat
+           "full", one fixed 4 x 1024 batch: the loss and every gradient
+           leaf of impl="kernel" against impl="naive" and an fp32 oracle on
+           the same weights, both sending each token to the experts the
+           kernel path chose (the bf16 gradient sets wait in host memory
+           while the oracle runs), and two kernel-path passes equal to the
+           bit; then 8 steps of make_train_step with the reference's
+           large-model recipe (TRAIN_LARGE_MSM: bf16 moments, no master
+           weights, stochastic rounding, bf16 gradient compression;
+           microbatches 1), K1 4, K2a 2, K2b 2 launches a step, losses
+           falling; step times (host clock, and the profiler's kernel-time
+           sum), tokens/s, MFU over the active parameters (6 routed + 2
+           shared experts a token), peak memory, the optimizer's device
+           time and a torch.profiler breakdown of one step
   kernels  the summary line: per kernel its launches on each path (serve,
-           serve_hybrid, serve_vlm, serve_moe, serve_mla, train), error,
-           time, plain time, bound and the library call's time; K1 and K2
-           also at S=4096 and D=128, K1 also at the two D=128 models' and
-           the MLA model's prefill,
+           serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla),
+           error, time, plain time, bound and the library call's time; K1
+           and K2 also at S=4096, D=128 and MLA's training shape, K1 also at
+           the two D=128 models' and the MLA model's prefill,
            K3 with its plan and at its five other timed shapes
            (`more_shapes`); K4 also its launches by
            route and both routes' times at T=2048 and T=256; K5 its launches
@@ -165,6 +186,9 @@ MOE_LAYERS, MOE_FP32_LAYERS = 6, 2
 # and 3 MoE layers in bf16 (13.30 B parameters), the dense layer and 1 MoE
 # layer in fp32 (5.36 B)
 MLA_ARCH, MLA_LAYERS, MLA_FP32_LAYERS = "deepseek-v2-236b", 4, 2
+# its training (train_mla): the first_k_dense layer and 1 MoE layer (5.36 B
+# parameters) at TRAIN_BATCH x TRAIN_SEQ
+MLA_TRAIN_LAYERS = 2
 # fp32 logits, kernel path against naive path: the CPU model tests' tolerance
 LOGIT_TOL_FP32 = 1e-4
 # (atol, rtol): |got - want| <= atol + rtol |want| in every element.
@@ -502,9 +526,12 @@ def check_decode_graph(gen, *, b, h, kvh, d, s, dtype) -> dict:
             "replays_bit_identical_to_host_int": True, "max_abs_err_by_kv_len": errs}
 
 
-def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, timed=False) -> dict:
+def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, dv=None,
+                              timed=False) -> dict:
     """K2a and K2b against their plain versions, and twice on the same inputs
-    (the two launches must agree bit for bit), with the plan they ran."""
+    (the two launches must agree bit for bit), with the plan they ran.
+    ``dv``: v's head dim where it differs from q's and k's (MLA). Timed rows
+    also name the kernels the library's backward ran."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_bwd import (attention_delta, bwd_plan,
@@ -513,10 +540,11 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
                                                          flash_attention_bwd_dq,
                                                          flash_attention_bwd_dq_plain)
 
+    dv = d if dv is None else dv
     q = randn(gen, (b, sq, h, d), dtype)
     k = randn(gen, (b, skv, kvh, d), dtype)
-    v = randn(gen, (b, skv, kvh, d), dtype)
-    dout = randn(gen, (b, sq, h, d), dtype)
+    v = randn(gen, (b, skv, kvh, dv), dtype)
+    dout = randn(gen, (b, sq, h, dv), dtype)
     out, lse = flash_attention(q, k, v, causal=causal)
     delta = attention_delta(out, dout)
     dq = lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal)
@@ -528,8 +556,9 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
             *flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, causal=causal))
     row = {"kernel": "flash_attention_bwd",
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "D": d,
+                     **({"Dv": dv} if dv != d else {}),
                      "dtype": str(dtype).split(".")[-1], "causal": causal},
-           "plan": bwd_plan(b, sq, skv, h, kvh, d, dtype, causal).summary(),
+           "plan": bwd_plan(b, sq, skv, h, kvh, d, dtype, causal, dv=dv).summary(),
            "tol": BWD_TOL[dtype],
            "max_abs_err": {n: scaled_compare(f"flash_attention_bwd {n}", x, y, BWD_TOL[dtype],
                                              BWD_TOL[dtype], dtype != torch.float32)
@@ -541,10 +570,14 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
     if timed:
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
         es = q.element_size()
-        io = {"dq": es * (3 * q.numel() + k.numel() + v.numel()) + 4 * (lse.numel() + delta.numel()),
-              "dkv": es * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
-                     + 4 * (lse.numel() + delta.numel())}
-        flops = {"dq": 6 * b * h * d * pairs, "dkv": 8 * b * h * d * pairs}
+        stats = 4 * (lse.numel() + delta.numel())
+        # each input read once, each output written once: K2a reads q, k, v,
+        # dout and writes dq; K2b reads the same and writes dk and dv
+        io = {"dq": es * (2 * q.numel() + k.numel() + v.numel() + dout.numel()) + stats,
+              "dkv": es * (q.numel() + dout.numel() + 2 * k.numel() + 2 * v.numel()) + stats}
+        # K2a: S = Q K^T and dq = dS K over D, dP = dO V^T over Dv; K2b: S^T
+        # and dk over D, dP^T and dv over Dv
+        flops = {"dq": 2 * b * h * pairs * (2 * d + dv), "dkv": 4 * b * h * pairs * (d + dv)}
         plain = {"dq": lambda: flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, causal=causal),
                  "dkv": lambda: flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, causal=causal)}
         for name, fn in (("dq", dq), ("dkv", dkv)):
@@ -556,36 +589,44 @@ def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, time
         # the library's backward: fused forward+backward less the forward
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         dot = dout.transpose(1, 2)
-        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True,
+                                                     scale=d ** -0.5)
         fwd_bwd = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot)
         lib_fwd, lib_all = device_ms(fwd), device_ms(fwd_bwd)
         row.update(library_fwd_ms=lib_fwd, library_fwd_bwd_ms=lib_all,
-                   library_ms=lib_all - lib_fwd)
+                   library_ms=lib_all - lib_fwd,
+                   library_kernels=[r["kernel"] for r in profile_step(fwd_bwd, top=4)["top"]])
     return row
 
 
-def phase_occupancy(cfg) -> dict:
-    """cudaOccupancyMaxActiveClusters of K2b's launch at the training shape,
-    beside its plan: how many of its clusters the card holds at once."""
+def phase_occupancy(cfg, mla) -> list[dict]:
+    """cudaOccupancyMaxActiveClusters of K2b's launch at the training shape
+    of ``cfg`` and of the ``mla`` model (head dims (192, 128)), beside its
+    plan: how many of its clusters the card holds at once."""
     from repro_torch.kernels.flash_attention_bwd import bwd_plan, dkv_max_active_clusters
 
-    shape = dict(b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, h=cfg.n_heads, kvh=cfg.n_kv_heads,
-                 d=cfg.head_dim)
-    plan = bwd_plan(**shape, dtype=torch.bfloat16, causal=True)
-    clusters = dkv_max_active_clusters(**shape)
-    if clusters < 1:
-        raise AssertionError(f"K2b: not one cluster of {plan.cluster} blocks fits the card")
-    return {"phase": "occupancy", "kernel": "flash_attention_bwd_dkv", "shape": shape,
-            "plan": plan.summary(), "max_active_clusters": clusters,
-            "max_active_blocks": clusters * plan.cluster,
-            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    rows = []
+    for m, dims in ((cfg, dict(h=cfg.n_heads, kvh=cfg.n_kv_heads, d=cfg.head_dim,
+                               dv=cfg.head_dim)),
+                    (mla, mla_dims(mla))):
+        shape = dict(b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, **dims)
+        plan = bwd_plan(**shape, dtype=torch.bfloat16, causal=True)
+        clusters = dkv_max_active_clusters(**shape)
+        if clusters < 1:
+            raise AssertionError(f"K2b: not one cluster of {plan.cluster} blocks fits the card")
+        rows.append({"phase": "occupancy", "kernel": "flash_attention_bwd_dkv", "arch": m.name,
+                     "shape": shape, "plan": plan.summary(), "max_active_clusters": clusters,
+                     "max_active_blocks": clusters * plan.cluster,
+                     "sms": torch.cuda.get_device_properties(0).multi_processor_count})
+    return rows
 
 
-def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict, dict]:
+def phase_train_checks(cfg, wide_cfg, mla) -> tuple[dict, dict, dict, dict]:
     """K2a/K2b over the training path's shape and the awkward ones, and K1 at
     the training path's shape; returns the two timed rows at the training
-    shape and K1's and K2's timed rows at S=4096 (tinyllama's heads, B=1)
-    and at D=128 (``wide_cfg``'s heads, B=2, S=1024)."""
+    shape and K1's and K2's timed rows at S=4096 (tinyllama's heads, B=1),
+    at D=128 (``wide_cfg``'s heads, B=2, S=1024) and at the ``mla`` model's
+    training shape (head dims (192, 128), B=4, S=1024)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -615,6 +656,26 @@ def phase_train_checks(cfg, wide_cfg) -> tuple[dict, dict, dict, dict]:
         dict(b=1, sq=256, skv=256, h=16, kvh=1, d=d, dtype=bf16, causal=True),    # G=16: c=8, 2 heads a block
     ):
         rows.append(check_flash_attention_bwd(gen, **kw))
+    # MLA's training shape (deepseek-v2-236b: q/k 192, v 128, G=1), K1 and K2
+    # timed, then its awkward shapes at the same head dims, K1 and K2 each: a
+    # ragged length, Sq != Skv, G=4, fp32; on a generator of their own, so
+    # the rows above keep their inputs
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dims, key = mla_dims(mla), f"{mla.name} MLA train"
+    fa_more[key] = check_flash_attention(gen, b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, **dims,
+                                         dtype=bf16, causal=True, timed=True)
+    more[key] = check_flash_attention_bwd(gen, b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, **dims,
+                                          dtype=bf16, causal=True, timed=True)
+    rows += [fa_more[key], more[key]]
+    d, dv = dims["d"], dims["dv"]
+    for kw in (
+        dict(b=2, sq=333, skv=333, h=8, kvh=8, dtype=bf16, causal=True),        # no tile multiple
+        dict(b=2, sq=200, skv=333, h=8, kvh=8, dtype=bf16, causal=False),       # Sq != Skv
+        dict(b=2, sq=384, skv=384, h=8, kvh=2, dtype=bf16, causal=True),        # G=4: c=4
+        dict(b=1, sq=300, skv=300, h=4, kvh=4, dtype=fp32, causal=True),
+    ):
+        rows.append(check_flash_attention(gen, **kw, d=d, dv=dv))
+        rows.append(check_flash_attention_bwd(gen, **kw, d=d, dv=dv))
     for row in rows:
         emit({"phase": "checks", "path": "train", **row})
     return fa, bwd, fa_more, more
@@ -1530,6 +1591,13 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
+def param_paths(tree, prefix=""):
+    """Dotted names of a parameter tree's leaves, in ``tree_leaves``' order."""
+    for k in sorted(tree.keys()):
+        v = tree[k]
+        yield from param_paths(v, f"{prefix}{k}.") if hasattr(v, "keys") else [prefix + k]
+
+
 def phase_train(cfg) -> dict:
     """tinyllama-1.1b at full width and depth, bf16 parameters, fp32 master
     weights and moments, remat "full": first the loss and every gradient of
@@ -1570,12 +1638,7 @@ def phase_train(cfg) -> dict:
                 "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
 
     # 1. the first step's loss and gradients, kernel path against naive path
-    def paths(tree, prefix=""):                      # tree_leaves' order
-        for k in sorted(tree.keys()):
-            v = tree[k]
-            yield from paths(v, f"{prefix}{k}.") if hasattr(v, "keys") else [prefix + k]
-
-    keys = list(paths(model.params))
+    keys = list(param_paths(model.params))
 
     def loss_and_grads(m):
         loss = m.loss(batch)
@@ -1671,6 +1734,218 @@ def phase_train(cfg) -> dict:
     return launches
 
 
+def phase_train_mla(full_cfg) -> dict:
+    """deepseek-v2-236b (MLA) at full width, cut to MLA_TRAIN_LAYERS layers
+    (its first_k_dense layer and one MoE layer), bf16, remat "full", on one
+    fixed 4 x 1024 batch: first the loss and every gradient of
+    impl="kernel" (K1 at head dims (192, 128), K2a/K2b behind it) against
+    impl="naive" and an fp32 oracle on the same weights, the two reference
+    paths sending each token to the experts the kernel path chose, and the
+    kernel path twice, equal to the bit; then TRAIN_STEPS steps of
+    make_train_step with the reference's large-model recipe, with the launch
+    counts of the design. At most one set of bf16 gradients is on the card
+    while the oracle runs: the others wait in host memory."""
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.base import count_params
+    from repro_torch.train import OptimConfig, init_opt_state, make_train_step
+    from repro_torch.train.optim import apply_updates, tree_leaves, tree_map, tree_unflatten
+
+    t_start = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(full_cfg, n_layers=MLA_TRAIN_LAYERS)
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    model = LanguageModel(cfg, impl="kernel", remat="full")
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    init_peak = torch.cuda.max_memory_allocated()
+    naive = LanguageModel(cfg, impl="naive", remat="full")
+    naive.params = model.params                      # the same weights, not a copy
+    data = DataLoader(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    try:
+        _, batch = next(data)
+    finally:
+        data.close()
+    batch = to_device(batch, torch.device("cuda"))
+    layers, routed_layers = cfg.n_layers, cfg.n_layers - cfg.first_k_dense
+    per_step = {"flash_attention": 2 * layers,       # forward, and its recompute under remat
+                "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
+    keys = list(param_paths(model.params))
+
+    def loss_and_grads(m, replay=None):
+        # under remat "full" each MoE layer routes twice a pass: its forward
+        # and its recompute; ``replay`` sends both calls to the given experts
+        with routes(replay) as calls:
+            loss = m.loss(batch)
+            grads = torch.autograd.grad(loss, tree_leaves(m.params))
+        return float(loss.detach()), grads, calls
+
+    def to_host(grads):
+        return [g.to("cpu") for g in grads]
+
+    # 1. loss and gradients three ways; the kernel path twice
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    k_loss, k_grads, k_routes = loss_and_grads(model)
+    if counts() != per_step:
+        raise AssertionError(f"train_mla: launches in one loss+backward {counts()}, "
+                             f"expected {per_step}")
+    again_loss, again, again_routes = loss_and_grads(model)
+    differ = [key for key, a, b in zip(keys, k_grads, again) if not torch.equal(a, b)]
+    if (again_loss != k_loss or differ
+            or not all(torch.equal(a, b) for a, b in zip(k_routes, again_routes))):
+        raise AssertionError(f"train_mla: two kernel-path passes differ: loss {k_loss} vs "
+                             f"{again_loss}, gradients of {differ}")
+    del again
+    for key, g in zip(keys, k_grads):
+        if not bool(torch.isfinite(g).all()) or float(g.float().norm()) == 0.0:
+            raise AssertionError(f"train_mla: gradient of {key} is zero or non-finite")
+    reset()
+    n_loss, n_grads, n_routes = loss_and_grads(naive, replay=k_routes)
+    grad_rel = {"kernel_vs_naive": {key: rel_err(kg, ng)
+                                    for key, kg, ng in zip(keys, k_grads, n_grads)},
+                "kernel_vs_fp32": {}, "naive_vs_fp32": {}}
+    k_host, n_host = to_host(k_grads), to_host(n_grads)
+    del k_grads, n_grads
+    grads_peak = torch.cuda.max_memory_allocated()
+    # an fp32 oracle on the same (bf16-valued) weights, routed as the kernel path
+    free_memory()
+    exact = LanguageModel(cfg, impl="naive", remat="full")
+    exact.load_params(tree_map(lambda p: p.detach().float(), model.params))
+    e_loss, e_grads, _ = loss_and_grads(exact, replay=k_routes)
+    del exact
+    if any(counts().values()):
+        raise AssertionError(f"train_mla: the naive paths launched a kernel: {counts()}")
+    oracle_peak = torch.cuda.max_memory_allocated()
+    for key, kg, ng, eg in zip(keys, k_host, n_host, e_grads):
+        grad_rel["kernel_vs_fp32"][key] = rel_err(kg.to("cuda"), eg)
+        grad_rel["naive_vs_fp32"][key] = rel_err(ng.to("cuda"), eg)
+    del e_grads, k_host, n_host
+    free_memory()
+    worst = {k: max(v.values()) for k, v in grad_rel.items()}
+    for key, err in grad_rel["kernel_vs_naive"].items():
+        if err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"train_mla: gradient of {key}: kernel vs naive relative error "
+                                 f"{err} > {TRAIN_GRAD_RTOL}")
+        if grad_rel["kernel_vs_fp32"][key] > TRAIN_VS_ORACLE * grad_rel["naive_vs_fp32"][key]:
+            raise AssertionError(f"train_mla: gradient of {key}: the kernel path is further from "
+                                 f"the fp32 oracle than the naive path: "
+                                 f"{grad_rel['kernel_vs_fp32'][key]} vs "
+                                 f"{grad_rel['naive_vs_fp32'][key]}")
+    loss_diff = abs(k_loss - n_loss)
+    if loss_diff > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"train_mla: first-step loss kernel {k_loss} vs naive {n_loss}")
+
+    # 2. the trainer's steps with the reference's large-model recipe
+    # (TRAIN_LARGE_MSM): bf16 moments, no master weights, stochastic
+    # rounding of the bf16 update, bf16 gradient compression
+    opt_cfg = OptimConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS,
+                          moment_dtype="bfloat16", master_weights=False,
+                          stochastic_rounding=True)
+    opt_state = init_opt_state(model.params, opt_cfg, grad_compression="bf16")
+    step = make_train_step(model, opt_cfg, grad_compression="bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        rng = torch.Generator(device="cuda").manual_seed(i)   # as launch.train seeds a step
+        t0 = time.perf_counter()
+        _, opt_state, metrics = step(model.params, opt_state, batch, rng)
+        losses.append(float(metrics["loss"]))        # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"train_mla: launch counts {launches}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_mla: losses {losses}: not all finite, or the last is not "
+                             "below the first")
+
+    # 3. the device's own time for a step and for the optimizer: the sums of
+    # a torch.profiler trace's kernel times, not a CUDA-graph replay. The
+    # step draws its stochastic-rounding noise from a torch.Generator, and a
+    # capture of it raises ("Attempt to increase offset for a CUDA generator
+    # not in capture mode", torch 2.11 on the H100)
+    rng = torch.Generator(device="cuda").manual_seed(TRAIN_STEPS)
+    profile = profile_step(lambda: step(model.params, opt_state, batch, rng))
+    device_step_ms = profile["device_ms"]
+    grads = tree_unflatten(model.params, loss_and_grads(model)[1])
+    optimizer_profile = profile_step(
+        lambda: apply_updates(model.params, grads, opt_state, opt_cfg, rng=rng), top=5)
+    del grads
+
+    host_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3     # median, first step excluded
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = count_params(model.specs())
+    # the parameters a token's products touch: all but the lookup table and
+    # the routed experts it is not sent to (top_k of n_experts)
+    routed = routed_layers * 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff
+    n_active = (n_params - cfg.vocab_size * cfg.d_model
+                - routed * (cfg.n_experts - cfg.top_k) // cfg.n_experts)
+    d, dv = cfg.head_dim + cfg.rope_head_dim, cfg.v_head_dim
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn_flops = 6 * TRAIN_BATCH * cfg.n_heads * pairs * (d + dv) * layers
+    model_flops = 6 * n_active * tokens + attn_flops
+    row = {"phase": "train_mla", "arch": cfg.name, "n_layers": layers,
+           "reduced": f"depth {layers} of {full_cfg.n_layers} layers ({cfg.first_k_dense} "
+                      f"dense-FFN, {routed_layers} MoE); full width; microbatches 1 (the "
+                      f"reference's 16 cannot split a batch of {TRAIN_BATCH})",
+           "dtype": "bfloat16", "remat": "full",
+           "recipe": {"source": "TRAIN_LARGE_MSM (src/repro/core/msm.py:82-90)",
+                      "moment_dtype": opt_cfg.moment_dtype,
+                      "master_weights": opt_cfg.master_weights,
+                      "stochastic_rounding": opt_cfg.stochastic_rounding,
+                      "grad_compression": "bf16", "microbatches": 1},
+           "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "kv_lora": cfg.kv_lora_rank,
+                     "q_lora": cfg.q_lora_rank, "k_head_dims": [d, dv]},
+           "experts": {"E": cfg.n_experts, "top_k": cfg.top_k, "shared": cfg.n_shared_experts,
+                       "moe_d_ff": cfg.moe_d_ff},
+           "n_params": n_params, "n_active_params": n_active,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "losses": losses,
+           "first_step_loss": {"kernel": k_loss, "naive": n_loss, "fp32": e_loss,
+                               "abs_diff": loss_diff},
+           "kernel_runs_bit_identical": True,
+           "naive_routes": "the kernel path's, replayed (naive and fp32 oracle)",
+           "routing_agreement_naive_own_picks": routing_agreement(n_routes, k_routes,
+                                                                  routed_layers),
+           "grad_rel_err_max": worst, "grad_rel_err": grad_rel,
+           "launches_per_step": per_step, "launches": launches,
+           "step_ms_host": [x * 1e3 for x in step_s], "step_ms_host_median": host_ms,
+           "step_ms_device": device_step_ms,
+           "step_ms_device_from": "torch.profiler kernel-time sum of one step",
+           "device_idle_share": 1 - device_step_ms / host_ms,
+           "tokens_per_s": tokens / (host_ms / 1e3),
+           "model_flops_per_step": model_flops,
+           "mfu_host": model_flops / (host_ms / 1e3) / 989e12,
+           "mfu_device": model_flops / (device_step_ms / 1e3) / 989e12,
+           "init_max_memory_allocated_bytes": init_peak,
+           "grads_max_memory_allocated_bytes": grads_peak,
+           "oracle_max_memory_allocated_bytes": oracle_peak,
+           "max_memory_allocated_bytes": peak_bytes,
+           "optimizer_device_ms": optimizer_profile["device_ms"],
+           "optimizer_profile": optimizer_profile, "profile": profile}
+    del model, naive, opt_state, step
+    row["phase_s"] = time.perf_counter() - t_start
+    emit(row)
+    free_memory()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1705,16 +1980,26 @@ def main() -> int:
                                       for key in ("spill_stores", "spill_loads")):
         raise AssertionError(f"K1's (192, 128) instances must build, bf16 without spills: "
                              f"{k1_mla}")
+    # K2a and K2b at MLA's head dims: all four instances built, the bf16 ones
+    # without spills (the fp32 ones are off the training path: reported only)
+    k2_mla = {n: ptxas.get(n) for n in ("attn_bwd_dq_mma<192,128,32>",
+                                        "attn_bwd_dkv_mma<192,128,16>",
+                                        "attn_bwd_dq_fma<192,128>", "attn_bwd_dkv_fma<192,128>")}
+    if None in k2_mla.values() or any(k2_mla[n].get(key, 1) for n in list(k2_mla)[:2]
+                                      for key in ("spill_stores", "spill_loads")):
+        raise AssertionError(f"K2's (192, 128) instances must build, bf16 without spills: "
+                             f"{k2_mla}")
     k5_mma = {n: r for n, r in ptxas.items() if n.startswith("ssd_chunk_scan_mma")}
     if len(k5_mma) != 6 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                for r in k5_mma.values()):
         raise AssertionError(f"K5's mma instances must build without spills: {k5_mma}")
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
-    emit(phase_occupancy(cfg))
     vlm, moe, mla = configs.get(VLM_ARCH), configs.get(MOE_ARCH), configs.get(MLA_ARCH)
+    for row in phase_occupancy(cfg, mla):
+        emit(row)
     fa, fd, fd_more, fa_models = phase_checks(cfg, hybrid, configs.get(LONG_ARCH), vlm, moe, mla)
-    fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH))
+    fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH), mla)
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
@@ -1722,6 +2007,7 @@ def main() -> int:
     vlm_launches = phase_serve_vlm(vlm)
     moe_launches = phase_serve_routed("serve_moe", moe, MOE_LAYERS, MOE_FP32_LAYERS)
     mla_launches = phase_serve_routed("serve_mla", mla, MLA_LAYERS, MLA_FP32_LAYERS)
+    train_mla_launches = phase_train_mla(mla)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -1729,7 +2015,8 @@ def main() -> int:
 
     def bwd_shapes(part):
         return {key: {"shape": row["shape"], "plan": row["plan"], **timing(row[part]),
-                      "library_ms": row["library_ms"]} for key, row in bwd_more.items()}
+                      "library_ms": row["library_ms"], "library_kernels": row["library_kernels"]}
+                for key, row in bwd_more.items()}
 
     fa_shapes = {key: {"shape": row["shape"], "max_abs_err": row["max_abs_err"], **timing(row),
                        "library_ms": row["library_ms"]}
@@ -1747,7 +2034,8 @@ def main() -> int:
     def by_path(name):
         return {"serve": launches.get(name, 0), "serve_hybrid": hybrid_launches.get(name, 0),
                 "serve_vlm": vlm_launches.get(name, 0), "serve_moe": moe_launches.get(name, 0),
-                "serve_mla": mla_launches.get(name, 0), "train": train_launches.get(name, 0)}
+                "serve_mla": mla_launches.get(name, 0), "train": train_launches.get(name, 0),
+                "train_mla": train_mla_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

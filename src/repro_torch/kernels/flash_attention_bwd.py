@@ -2,21 +2,23 @@
 ``csrc/flash_attention_bwd.cu`` (K2a ``dq``; K2b ``dk`` + ``dv``), and the
 plain PyTorch versions of the same functions beside them.
 
-    q, dout (B,Sq,H,D), k/v (B,Skv,KVH,D), out (B,Sq,H,D), lse (B,Sq,H) fp32
-    -> dq (B,Sq,H,D), dk, dv (B,Skv,KVH,D)
+    q (B,Sq,H,D), k (B,Skv,KVH,D), v (B,Skv,KVH,Dv), out and dout (B,Sq,H,Dv),
+    lse (B,Sq,H) fp32 -> dq (B,Sq,H,D), dk (B,Skv,KVH,D), dv (B,Skv,KVH,Dv)
 
 ``lse`` is the forward's (``flash_attention`` returns it); ``P`` is recomputed
 from it as ``exp(scale * q k^T - lse)``, never stored. ``delta =
 rowsum(out * dout)`` in fp32 is computed once here and handed to both
 kernels. ``flash_attention_bwd`` takes CUDA tensors only and launches K2a
 then K2b on the current stream, or raises; each kernel's wrapper counts its
-own launches. The plain versions materialize P in fp32; the CPU tests and the
-on-card comparison use them, and ``kernels.ops`` takes them for CPU tensors.
+own launches. The plain versions materialize P in fp32 and take any (D, Dv);
+the CPU tests and the on-card comparison use them, and ``kernels.ops`` takes
+them for CPU tensors. The CUDA source instantiates K1's pairs, ``HEAD_DIMS``:
+Dv differs from D in MLA attention (q/k at 192, v at 128).
 
 ``bwd_plan`` is the host-side plan the kernels are launched with: both grids,
-K2b's q-tile (which picks its kernel instance), cluster size and heads per
-block go to the C entry points, which launch them as given (and refuse a grid
-that does not cover the tensors with their tiles). ``dq_walk``, ``dkv_walk``
+K2a's key tile and K2b's q-tile (which pick the kernel instances), cluster
+size and heads per block go to the C entry points, which launch them as
+given (and refuse a grid that does not cover the tensors with their tiles). ``dq_walk``, ``dkv_walk``
 and ``cluster_rows`` restate in Python the walk the CUDA source makes: which
 tiles each block visits, which of them it masks, and which rows of a key tile
 each block of a cluster sums. The CPU tests hold that statement of the walk;
@@ -30,24 +32,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import NEG_INF
-from repro_torch.kernels.flash_attention import check_inputs as check_forward_inputs
-
-HEAD_DIMS = (32, 64, 128)       # head dims the CUDA source instantiates (Dv == D)
-# MLA's shapes (v's head dim below q's and k's, D = 192): K1 runs them, the
-# backward not yet
-MLA_TRAINING = "ROADMAP.md queue 2, E1's training half (K2a/K2b at Dv != D and D = 192)"
-
-
-def check_inputs(q, k, v, causal: bool) -> None:
-    """K1's requirements, and Dv == D with D != 192: MLA's shapes are
-    refused by the kernels and the plain versions alike until the backward
-    is built for them."""
-    check_forward_inputs(q, k, v, causal)
-    d, dv = q.shape[-1], v.shape[-1]
-    if dv != d or d == 192:
-        raise NotImplementedError(f"attention backward at q/k head dim {d}, v head dim {dv} "
-                                  f"(MLA) is not ported yet: {MLA_TRAINING}")
+from repro_torch.kernels.flash_attention import HEAD_DIMS, NEG_INF
+from repro_torch.kernels.flash_attention import check_inputs
 
 
 def attention_delta(out, dout):
@@ -58,12 +44,13 @@ def attention_delta(out, dout):
 
 def _plain_p_ds(q, k, v, out, lse, dout, causal: bool, scale: float):
     """fp32 P and dS, (B,KVH,G,Sq,Skv), as ``_p_block`` and the Pallas
-    kernels compute them; also the fp32 grouped q and dout."""
+    kernels compute them (dP = dO V^T over Dv); also the fp32 grouped q and
+    dout."""
     b, sq, h, d = q.shape
-    _, skv, kvh, _ = k.shape
+    _, skv, kvh, dv = v.shape
     g = h // kvh
     qg = q.reshape(b, sq, kvh, g, d).float()
-    dog = dout.reshape(b, sq, kvh, g, d).float()
+    dog = dout.reshape(b, sq, kvh, g, dv).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     if causal:
         mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
@@ -111,15 +98,16 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
 def check_bwd_inputs(q, k, v, out, lse, dout, causal: bool) -> None:
     """What both versions require of their arguments."""
     check_inputs(q, k, v, causal)
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must have "
-                         f"q's shape {tuple(q.shape)}")
+    want = (*q.shape[:3], v.shape[-1])
+    if out.shape != want or dout.shape != want:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"(B,Sq,H,Dv) {want}")
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 of shape {tuple(q.shape[:3])}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
 
 
-DQ_TILES = (64, 64)     # (query rows, keys) of a K2a block, bf16, every D
+DQ_ROWS = 64            # query rows of a K2a block, bf16
 DKV_KEYS = 64           # keys of a K2b block, bf16
 MAX_CLUSTER = 8         # the portable thread-block cluster size
 FMA_TILE = 32           # rows and keys of a tile of the fp32 kernels
@@ -169,18 +157,32 @@ class BwdPlan:
                 "dq_grid": list(self.dq_grid), "dkv_grid": list(self.dkv_grid)}
 
 
+# the bf16 tiles of each (D, Dv) instance: K2a's keys a step, 64, and 32 at
+# (192, 128) (S and dP in 16 registers each beside dq's 96, and two blocks an
+# SM); K2b's query rows a step, 64 at D <= 64, 32 at D = 128 (S^T and dP^T in
+# 16 registers each beside the 128 of dk and dv), 16 at (192, 128) (8 each
+# beside 160)
+DQ_KEYS = {(32, 32): 64, (64, 64): 64, (128, 128): 64, (192, 128): 32}
+DKV_Q_TILES = {(32, 32): 64, (64, 64): 64, (128, 128): 32, (192, 128): 16}
+
+
 def bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int, d: int, dtype,
-             causal: bool) -> BwdPlan:
-    """The plan for q (b, sq, h, d), k/v (b, skv, kvh, d) of ``dtype``."""
+             causal: bool, dv: int | None = None) -> BwdPlan:
+    """The plan for q (b, sq, h, d), k (b, skv, kvh, d), v (b, skv, kvh, dv)
+    of ``dtype`` (``dv`` defaults to ``d``); bf16 needs (d, dv) one of
+    ``HEAD_DIMS``, whose instances set the tiles."""
     g = h // kvh
     if dtype == torch.float32:
         t = FMA_TILE
         return BwdPlan(sq, skv, causal, True, (t, t), (t, t), 1, g,
                        (cdiv(sq, t), h, b), (cdiv(skv, t), kvh, b))
+    pair = (d, d if dv is None else dv)
+    if pair not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {pair[0]}, v {pair[1]}) not supported: (D, Dv) one "
+                         f"of {HEAD_DIMS}")
     c = cluster_size(g)
-    dkv_bm = 64 if d <= 64 else 32      # D = 128: S^T, dP^T in 16 registers each
-    return BwdPlan(sq, skv, causal, False, DQ_TILES, (dkv_bm, DKV_KEYS), c, g // c,
-                   (b * h, cdiv(sq, DQ_TILES[0]), 1), (b * kvh * c, cdiv(skv, DKV_KEYS), 1))
+    return BwdPlan(sq, skv, causal, False, (DQ_ROWS, DQ_KEYS[pair]), (DKV_Q_TILES[pair], DKV_KEYS),
+                   c, g // c, (b * h, cdiv(sq, DQ_ROWS), 1), (b * kvh * c, cdiv(skv, DKV_KEYS), 1))
 
 
 def dq_walk(plan: BwdPlan, i: int) -> tuple[int, list[tuple[int, bool]]]:
@@ -223,23 +225,26 @@ def cluster_rows(c: int, rows: int = DKV_KEYS) -> list[tuple[int, int]]:
     return [(r * rows // c, (r + 1) * rows // c) for r in range(c)]
 
 
-def _plan_for(q, k, causal) -> BwdPlan:
+def _plan_for(q, k, v, causal) -> BwdPlan:
     b, sq, h, d = q.shape
-    return bwd_plan(b, sq, k.shape[1], h, k.shape[2], d, q.dtype, causal)
+    return bwd_plan(b, sq, k.shape[1], h, k.shape[2], d, q.dtype, causal, dv=v.shape[3])
 
 
-def _launch_args(q, k, causal, scale):
+def _launch_args(q, k, v, causal, scale):
     b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported {HEAD_DIMS}")
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {d}, v {dv}) not supported: (D, Dv) one of {HEAD_DIMS}")
     scale = scale if scale is not None else d ** -0.5
-    return (b, sq, skv, h, kvh, d, float(scale), int(causal),
+    return (b, sq, skv, h, kvh, d, dv, float(scale), int(causal),
             int(q.dtype == torch.bfloat16))
 
 
 def _check_cuda(q, k, v, dout, lse, delta, causal):
     check_inputs(q, k, v, causal)
+    if dout.shape != (*q.shape[:3], v.shape[-1]):
+        raise ValueError(f"dout {tuple(dout.shape)} must be (B,Sq,H,Dv) "
+                         f"{(*q.shape[:3], v.shape[-1])}")
     build.check_cuda_tensors(q=q, k=k, v=v, dout=dout)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
@@ -251,16 +256,17 @@ def _check_cuda(q, k, v, dout, lse, delta, causal):
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                            scale: float | None = None):
     """Launches K2a on the current stream: dq. CUDA tensors, bf16 or fp32,
-    contiguous; ``lse`` and ``delta`` (B,Sq,H) fp32."""
+    contiguous, (q/k head dim, v head dim) one of ``HEAD_DIMS``; ``lse`` and
+    ``delta`` (B,Sq,H) fp32."""
     _check_cuda(q, k, v, dout, lse, delta, causal)
-    plan = _plan_for(q, k, causal)
+    plan = _plan_for(q, k, v, causal)
     dq = torch.empty_like(q)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), *_launch_args(q, k, causal, scale),
-            *plan.dq_grid, torch.cuda.current_stream().cuda_stream)
+            delta.data_ptr(), dq.data_ptr(), *_launch_args(q, k, v, causal, scale),
+            plan.dq_tiles[1], *plan.dq_grid, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -270,14 +276,14 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
                             scale: float | None = None):
     """Launches K2b on the current stream: (dk, dv). Arguments as K2a's."""
     _check_cuda(q, k, v, dout, lse, delta, causal)
-    plan = _plan_for(q, k, causal)
+    plan = _plan_for(q, k, v, causal)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_launch_args(q, k, causal, scale),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_launch_args(q, k, v, causal, scale),
             plan.dkv_tiles[0], *plan.dkv_grid, plan.cluster, plan.heads_per_block,
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "flash_attention_bwd_dkv")
@@ -290,15 +296,17 @@ flash_attention_bwd_dkv.launches = 0    # K2b launches made by this wrapper
 
 
 def dkv_max_active_clusters(b: int, sq: int, skv: int, h: int, kvh: int, d: int,
-                            causal: bool = True) -> int:
+                            causal: bool = True, dv: int | None = None) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the bf16 K2b launch at this
-    shape: how many of its clusters the card holds at once."""
+    shape (v's head dim ``dv``, default ``d``): how many of its clusters the
+    card holds at once."""
     import ctypes
 
-    plan = bwd_plan(b, sq, skv, h, kvh, d, torch.bfloat16, causal)
+    dv = d if dv is None else dv
+    plan = bwd_plan(b, sq, skv, h, kvh, d, torch.bfloat16, causal, dv=dv)
     out = ctypes.c_int(0)
     lib = build.load_library()
-    code = lib.flash_attention_bwd_dkv_max_clusters(b, sq, skv, h, kvh, d, plan.dkv_tiles[0],
+    code = lib.flash_attention_bwd_dkv_max_clusters(b, sq, skv, h, kvh, d, dv, plan.dkv_tiles[0],
                                                     *plan.dkv_grid, plan.cluster,
                                                     plan.heads_per_block, ctypes.byref(out))
     build.check(lib, code, "flash_attention_bwd_dkv_max_clusters")

@@ -39,14 +39,17 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = dout.contiguous()                     # (B,Sq,H,Dv), as out
         bwd = flash_attention_bwd if q.is_cuda else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True, scale=None):
-    """q (B,Sq,H,D), k/v (B,Skv,KVH,D) -> (B,Sq,H,D), differentiable."""
+    """q (B,Sq,H,D), k (B,Skv,KVH,D), v (B,Skv,KVH,Dv) -> (B,Sq,H,Dv),
+    differentiable. On the card (D, Dv) is one of the kernels' ``HEAD_DIMS``
+    (MLA's (192, 128) among them), else the launch raises; the plain versions
+    take any pair."""
     return FlashAttentionFn.apply(q, k, v, causal, scale)
 
 

@@ -54,9 +54,7 @@ def to_device(batch: dict, device: torch.device) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b-smoke",
-                    help="a name of configs.ARCHS, with '-smoke' for its CPU-sized variant; "
-                         "deepseek-v2-236b (MLA) trains only at --seq-len <= 256 until "
-                         "K2 takes its head dims")
+                    help="a name of configs.ARCHS, with '-smoke' for its CPU-sized variant")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)

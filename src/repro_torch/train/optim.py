@@ -132,13 +132,20 @@ def apply_updates(params, grads, state, cfg: OptimConfig, rng: torch.Generator |
                    else [None] * len(flat_params))
     use_sr = cfg.stochastic_rounding and not cfg.master_weights and rng is not None
 
+    # each fp32 temporary is dropped as soon as it is used: a leaf of 1.26 B
+    # elements (a MoE layer's expert stack) takes 5 GB a temporary
     for p, g, mu, nu, mw in zip(flat_params, flat_grads, flat_mu, flat_nu, flat_master):
         g32 = g.float() * scale
         mu32 = mu.float() * b1 + g32 * (1 - b1)
         nu32 = nu.float() * b2 + torch.square(g32) * (1 - b2)
+        del g32
         upd = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
+        mu.copy_(mu32)
+        nu.copy_(nu32)
+        del mu32, nu32
         base = mw if mw is not None else p.float()
         p32 = base - lr * (upd + cfg.weight_decay * base)
+        del upd, base
         if mw is not None:
             mw.copy_(p32)
             p.copy_(p32)
@@ -146,8 +153,7 @@ def apply_updates(params, grads, state, cfg: OptimConfig, rng: torch.Generator |
             p.copy_(_stochastic_round_bf16(rng, p32))
         else:
             p.copy_(p32)
-        mu.copy_(mu32)
-        nu.copy_(nu32)
+        del p32
 
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention_bwd import (DKV_KEYS, FMA_TILE, MAX_CLUSTER, bwd_plan,
-                                                     cdiv, cluster_rows, cluster_size, dkv_heads,
-                                                     dkv_walk, dq_walk, flash_attention_bwd_dkv,
+from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels.flash_attention_bwd import (DKV_KEYS, DQ_ROWS, FMA_TILE, MAX_CLUSTER,
+                                                     bwd_plan, cdiv, cluster_rows, cluster_size,
+                                                     dkv_heads, dkv_walk, dq_walk,
+                                                     flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq,
                                                      flash_attention_bwd_plain)
 
@@ -29,6 +31,7 @@ DTYPES = [torch.bfloat16, torch.float32]
 # (Sq, Skv, causal): causal needs Sq == Skv
 LENGTHS = [(1, 1, True), (63, 63, True), (64, 64, True), (333, 333, True),
            (1024, 1024, True), (200, 333, False)]
+DV = dict(HEAD_DIMS)    # v's head dim of each q/k head dim's instance: 192 -> 128 (MLA)
 
 
 @pytest.mark.parametrize("g", GS)
@@ -106,14 +109,15 @@ def coverage(plan, kernel):
 
 
 @pytest.mark.parametrize("sq,skv,causal", LENGTHS)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 def test_walks_cover_each_pair_once(sq, skv, causal, d, dtype, kernel):
     """K2a's key-tile walks and K2b's q-tile walks, with the tiles the plan
     masks, take every (query, key) pair at or below the diagonal exactly
-    once, and none above it or outside the lengths."""
-    plan = bwd_plan(2, sq, skv, 8, 2, d, dtype, causal)
+    once, and none above it or outside the lengths (at D = 192, v's head dim
+    128: K2a's 32-key tiles and K2b's 16-row steps)."""
+    plan = bwd_plan(2, sq, skv, 8, 2, d, dtype, causal, dv=DV[d])
     count = coverage(plan, kernel)
     want = np.zeros_like(count)
     want[:sq, :skv] = 1
@@ -139,11 +143,11 @@ def test_masks_only_where_needed(sq, skv, causal):
 
 
 @pytest.mark.parametrize("s", [64, 333, 1024, 4096])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 192])
 def test_work_order_is_descending_when_causal(s, d):
     """With causal, both grids hand out the longest blocks first: K2a's grid
     row 0 is the last q-tile, K2b's is key tile 0."""
-    plan = bwd_plan(4, s, s, 32, 4, d, torch.bfloat16, True)
+    plan = bwd_plan(4, s, s, 32, 4, d, torch.bfloat16, True, dv=DV[d])
     dq_work = [len(dq_walk(plan, i)[1]) for i in range(plan.dq_grid[1])]
     dkv_work = [len(dkv_walk(plan, i)[1]) for i in range(plan.dkv_grid[1])]
     assert dq_work == sorted(dq_work, reverse=True)
@@ -163,13 +167,15 @@ def test_grids_at_the_training_shape():
     assert plan.dkv_grid[0] % plan.cluster == 0
 
 
-@pytest.mark.parametrize("d,q_tile", [(32, 64), (64, 64), (128, 32)])
+@pytest.mark.parametrize("d,q_tile", [(32, 64), (64, 64), (128, 32), (192, 16)])
 def test_dkv_q_tile_by_head_dim(d, q_tile):
     """K2b takes 32-row q-tiles at D=128 (S^T and dP^T in 16 registers each
-    beside 128 of accumulators), 64 below; K2a 64 x 64 at every D; fp32 32."""
-    plan = bwd_plan(2, 1024, 1024, 32, 4, d, torch.bfloat16, True)
-    assert plan.dkv_tiles == (q_tile, 64) and plan.dq_tiles == (64, 64)
-    fma = bwd_plan(2, 1024, 1024, 32, 4, d, torch.float32, True)
+    beside 128 of accumulators), 16 at (192, 128) (8 each beside 160), 64
+    below; K2a 64 x 64 at every D but 192, 64 x 32 there; fp32 32."""
+    plan = bwd_plan(2, 1024, 1024, 32, 4, d, torch.bfloat16, True, dv=DV[d])
+    assert plan.dkv_tiles == (q_tile, 64)
+    assert plan.dq_tiles == (64, 32 if d == 192 else 64)
+    fma = bwd_plan(2, 1024, 1024, 32, 4, d, torch.float32, True, dv=DV[d])
     assert fma.dq_tiles == fma.dkv_tiles == (32, 32) and fma.cluster == 1
 
 
@@ -177,19 +183,28 @@ def cu_constant(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", CU).group(1))
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+def cu_instances(pattern: str) -> set[tuple[int, ...]]:
+    return {tuple(map(int, m)) for m in re.findall(pattern, CU)}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 192])
 def test_plan_tiles_match_the_cuda_source(d):
-    """The plan's tiles are the CUDA source's: K2a's DQ_BM x BN, K2b's BN keys
-    with a q-tile that the source has a bf16 instance for at this D (the
-    instance the entry point picks by the plan's q-tile), MAX_CLUSTER, and the
-    fp32 kernels' FT."""
-    instances = {(int(a), int(b))
-                 for a, b in re.findall(r"launch_dkv_mma<(\d+), (\d+)>\(a, p\)", CU)}
-    assert instances == {(32, 64), (64, 64), (128, 32)}
-    plan = bwd_plan(2, 1024, 1024, 32, 4, d, torch.bfloat16, True)
-    assert plan.dq_tiles == (cu_constant("DQ_BM"), cu_constant("BN"))
+    """The plan's tiles are the CUDA source's: K2a's DQ_BM rows with a key
+    tile, K2b's BN keys with a q-tile, each one that the source has a bf16
+    instance for at this (D, Dv) (the instance the entry point picks by the
+    plan's tile; K2b's occupancy query has the same ones), MAX_CLUSTER, and
+    the fp32 kernels' FT, instantiated at every pair of ``HEAD_DIMS``."""
+    dq = cu_instances(r"launch_dq_mma<(\d+), (\d+), (\d+)>\(a, p\)")
+    dkv = cu_instances(r"launch_dkv_mma<(\d+), (\d+), (\d+)>\(a, p\)")
+    assert dq == {(32, 32, 64), (64, 64, 64), (128, 128, 64), (192, 128, 32)}
+    assert dkv == {(32, 32, 64), (64, 64, 64), (128, 128, 32), (192, 128, 16)}
+    assert cu_instances(r"dkv_max_clusters<(\d+), (\d+), (\d+)>\(a, p, max_clusters\)") == dkv
+    assert cu_instances(r"FN<(\d+), (\d+)>\(a, p\)") == set(HEAD_DIMS)
+    plan = bwd_plan(2, 1024, 1024, 32, 4, d, torch.bfloat16, True, dv=DV[d])
+    assert plan.dq_tiles[0] == cu_constant("DQ_BM") == DQ_ROWS
+    assert (d, DV[d], plan.dq_tiles[1]) in dq
     assert plan.dkv_tiles[1] == cu_constant("BN") == DKV_KEYS
-    assert (d, plan.dkv_tiles[0]) in instances
+    assert (d, DV[d], plan.dkv_tiles[0]) in dkv
     assert MAX_CLUSTER == cu_constant("MAX_CLUSTER") and FMA_TILE == cu_constant("FT")
 
 

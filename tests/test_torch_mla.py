@@ -1,6 +1,6 @@
 """The MLA slice: K1's plain version at v head dim != q/k head dim against the
 reference's Pallas kernel (interpret mode) and its jnp oracle; the checks
-that admit MLA's shapes to K1 and refuse them to K2; the port's
+that admit MLA's shapes to K1; the port's
 ``mla_attention`` / ``mla_decode`` and the ``moe`` LanguageModel with MLA
 (deepseek-v2-236b) against the JAX package's, on converted fp32 parameters and
 the same NumPy inputs. The CUDA instances at (192, 128) are held against the
@@ -23,7 +23,6 @@ from repro.models import attention as jattn
 from repro.models.base import count_params as jax_count_params
 from repro.models.base import init_params
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels import flash_attention_bwd as tbwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_inputs, flash_attention,
                                                  flash_attention_plain)
@@ -135,27 +134,6 @@ def test_k1_wrapper_names_its_head_dim_pairs_and_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, k, v, causal=True)
     assert flash_attention.launches == before
-
-
-@pytest.mark.parametrize("d,dv", [(24, 16), (192, 128), (192, 192)])
-def test_backward_refuses_mla_shapes(d, dv):
-    """K2a/K2b's wrappers, their plain versions and the autograd Function's
-    backward refuse Dv != D and D = 192, naming where the work is queued."""
-    (_, q), (_, k), (_, v) = qkv(2, 1, 8, 2, 2, d, dv)
-    out, lse = flash_attention_plain(q, k, v, causal=True)
-    dout = torch.ones_like(out)
-    delta = tbwd.attention_delta(out, dout)
-    msg = "ROADMAP.md queue 2, E1's training half"
-    for fn in (tbwd.flash_attention_bwd_plain, tbwd.flash_attention_bwd_dq_plain,
-               tbwd.flash_attention_bwd_dkv_plain, tbwd.flash_attention_bwd):
-        with pytest.raises(NotImplementedError, match=msg):
-            fn(q, k, v, out, lse, dout, causal=True)
-    for fn in (tbwd.flash_attention_bwd_dq, tbwd.flash_attention_bwd_dkv):
-        with pytest.raises(NotImplementedError, match=msg):
-            fn(q, k, v, dout, lse, delta, causal=True)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match=msg):
-        ops.flash_attention_op(q, k, v, causal=True).sum().backward()
 
 
 # ---- MLA attention and decode --------------------------------------------------------
