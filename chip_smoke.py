@@ -127,12 +127,40 @@ Phases, one JSON object a line:
            sum), tokens/s, MFU over the active parameters (6 routed + 2
            shared experts a token), peak memory, the optimizer's device
            time and a torch.profiler breakdown of one step
+  checks   (family paths) K1 and K2 at whisper-base's encoder (B=8, 1500
+           frames, non-causal, ragged), decoder (448 tokens, causal) and
+           cross-attention (448 queries against 1500 frames), at H = KVH = 8
+           D = 64, and at zamba2-1.2b's training shape (B=4 S=1024 H = KVH =
+           32: K2b's clusters of 1); K3 at the whisper engine's cross cache (B=4,
+           S = kv_len = 1500) and self cache (S=448 at kv_len 79); all timed,
+           with `sdpa` beside them
+  serve_audio  whisper-base at full size (6 encoder + 6 decoder layers, d
+           512, H = KVH = 8, D = 64, vocab 51865), bf16, seeded random weights:
+           the prefill step on 4 x (1500 seeded frames, 448 tokens) (K1 18:
+           encoder, self- and cross-attention) and `generate` for 16 steps
+           after a 64-token prompt (K3 2 x 6 x 79), the engine's cross caches
+           of 1500 rows holding seeded values this harness writes (the
+           reference's engine leaves them zeros), against impl="naive" on the
+           same weights and cross caches; times and profiles as serve's
+  train_audio  whisper-base at full size, one fixed batch of 8 x (1500
+           frames, 448 tokens), bf16 with fp32 master weights and moments
+           (TRAIN_MSM), remat "full": the loss and every gradient leaf of
+           impl="kernel" against impl="naive" and an fp32 oracle, two kernel
+           passes equal to the bit, then 8 steps at lr 1e-3 (K1 36, K2a 18,
+           K2b 18 a step), losses falling; step times (host clock, and the
+           profiler's kernel-time sum), tokens/s, MFU, peak memory
+  train_hybrid  zamba2-1.2b at full size, 4 x 1024, TRAIN_MSM, remat
+           "full", impl="kernel" with scan="naive" (K5 has no backward): the
+           same checks and numbers as train_audio (K1 12, K2a 6, K2b 6 a
+           step), and the naive scan's share of the step: its device time on
+           one layer's shape, forward and forward + backward, times 38 layers
   kernels  the summary line: per kernel its launches on each path (serve,
-           serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla),
+           serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
+           serve_audio, train_audio, train_hybrid),
            error, time, plain time, bound and the library call's time; K1
-           and K2 also at S=4096, D=128 and MLA's training shape, K1 also at
-           the two D=128 models' and the MLA model's prefill,
-           K3 with its plan and at its five other timed shapes
+           and K2 also at S=4096, D=128, MLA's training shape and the family
+           paths' four shapes, K1 also at the two D=128 models' and the MLA
+           model's prefill, K3 with its plan and at its seven other timed shapes
            (`more_shapes`); K4 also its launches by
            route and both routes' times at T=2048 and T=256; K5 its launches
            by route and both routes' times at its three timed shapes
@@ -211,6 +239,17 @@ BF16_REL_NORM = 1e-2
 SSD_SMALL_DT = (1e-3, 1e-1)
 SSD_LONG_S = 8192          # K5 timed on one long prompt (B=1) at zamba2-1.2b's heads
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
+# whisper-base (the encoder-decoder) at full size: 1500 encoder frames (30 s
+# of audio) and a 448-token decoder context, its published sizes. Served at
+# batch 4 with a 64-token prompt and 16 steps, the cross caches holding
+# AUDIO_FRAMES seeded rows; trained at batch 8 over 1500 frames + 448 tokens
+AUDIO_ARCH, AUDIO_FRAMES, AUDIO_MAX_LEN = "whisper-base", 1500, 448
+AUDIO_PROMPT, AUDIO_GEN_STEPS, AUDIO_TRAIN_BATCH = 64, 16, 8
+# serve_audio's logits, kernel path against naive path, by relative norm:
+# whisper's logits on its seeded init spread only ~0.14, under LOGIT_ATOL.
+# A cross-attention that contributes nothing must read at least
+# AUDIO_BLIND_MARGIN times this bound, or the check could not see it
+AUDIO_LOGIT_REL_NORM, AUDIO_BLIND_MARGIN = 5e-2, 4
 # kernel path against naive path on the card, bf16: each gradient leaf's
 # relative norm error, and the first step's loss. Both bf16 paths are 1-3 %
 # off an fp32 oracle in every leaf (ffn weights as much as attention's: the
@@ -681,6 +720,46 @@ def phase_train_checks(cfg, wide_cfg, mla) -> tuple[dict, dict, dict, dict]:
     return fa, bwd, fa_more, more
 
 
+def phase_family_checks(audio, hybrid) -> dict:
+    """K1 and K2 at the shapes ``train_audio``, ``serve_audio`` and
+    ``train_hybrid`` give them, K3 at ``serve_audio``'s two decode calls, all
+    timed: whisper-base's encoder (1500 frames, non-causal, ragged), its
+    decoder's causal self-attention (448 tokens) and its cross-attention (448
+    queries against 1500 frames, non-causal), at its training batch, H = KVH
+    = 8, D = 64; zamba2-1.2b's shared block in training (B=4 S=1024, H = KVH
+    = 32: K2b's clusters of 1); K3 against the 1500-row cross cache and the
+    448-row self cache at the engine's last length. Keyed by row name."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+    heads = dict(h=audio.n_heads, kvh=audio.n_kv_heads, d=audio.head_dim)
+    b = AUDIO_TRAIN_BATCH
+    attn_shapes = {
+        f"{audio.name} encoder": dict(b=b, sq=AUDIO_FRAMES, skv=AUDIO_FRAMES, causal=False,
+                                      **heads),
+        f"{audio.name} decoder": dict(b=b, sq=AUDIO_MAX_LEN, skv=AUDIO_MAX_LEN, causal=True,
+                                      **heads),
+        f"{audio.name} cross": dict(b=b, sq=AUDIO_MAX_LEN, skv=AUDIO_FRAMES, causal=False,
+                                    **heads),
+        f"{hybrid.name} train": dict(b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, causal=True,
+                                     h=hybrid.n_heads, kvh=hybrid.n_kv_heads, d=hybrid.head_dim),
+    }
+    out = {"fa": {}, "bwd": {}, "fd": {}}
+    for key, kw in attn_shapes.items():
+        out["fa"][key] = check_flash_attention(gen, **kw, dtype=bf16, timed=True)
+        out["bwd"][key] = check_flash_attention_bwd(gen, **kw, dtype=bf16, timed=True)
+    last = AUDIO_PROMPT + AUDIO_GEN_STEPS - 1         # the engine's last decode length
+    for key, s, kv_len in ((f"{audio.name} cross S=kv_len={AUDIO_FRAMES}", AUDIO_FRAMES,
+                            AUDIO_FRAMES),
+                           (f"{audio.name} self S={AUDIO_MAX_LEN} kv_len={last}", AUDIO_MAX_LEN,
+                            last)):
+        out["fd"][key] = check_flash_decode(gen, b=BATCH, s=s, kv_len=kv_len, dtype=bf16,
+                                            timed=True, **heads)
+    for part in out.values():
+        for key, row in part.items():
+            emit({"phase": "checks", "path": "families", "name": key, **row})
+    return out
+
+
 def mla_dims(cfg) -> dict:
     """K1's head dims and heads on an MLA model's prefill: q/k at
     head_dim + rope_head_dim, v at v_head_dim, one KV head a query head."""
@@ -1053,14 +1132,17 @@ def routes(replay=None):
 
 
 def drive(model, prompts, batches: dict, counters, gen_steps: int,
-          record_routes: bool = False, replay: dict | None = None) -> dict:
+          record_routes: bool = False, replay: dict | None = None, max_len: int = MAX_LEN,
+          enc_len: int = 0, prepare=None) -> dict:
     """The prefill step on each of ``batches`` (name -> batch), then the
     engine's ``generate``. Per part: the launch counts (and, for a counter
     with ``launches_by_route``, those by route), host-clock seconds around a
     synchronize, logits (the prefill step's last position; the engine's at
     the last prompt position) and, with ``record_routes`` or ``replay``, the
     experts each routing picked; ``replay`` (part -> experts a call) routes
-    each part's calls as given."""
+    each part's calls as given. The engine holds ``max_len`` positions and
+    ``enc_len`` cross-cache rows; ``prepare(engine)`` runs before
+    ``generate``, outside its timed span."""
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.serve.step import make_prefill_step
 
@@ -1089,7 +1171,9 @@ def drive(model, prompts, batches: dict, counters, gen_steps: int,
 
     for name, batch in batches.items():
         out["logits"][name] = part(name, lambda: prefill(batch))[:, 0].float()
-    engine = ServingEngine(model, BATCH, MAX_LEN)
+    engine = ServingEngine(model, BATCH, max_len, enc_len=enc_len)
+    if prepare is not None:
+        prepare(engine)
     out["tokens"] = part("generate", lambda: engine.generate(prompts, gen_steps))
     out["logits"]["engine"] = engine.prefill_logits
     out["engine"] = engine
@@ -1108,7 +1192,7 @@ def serve_times(ker: dict, ref: dict, timed: dict, prompts, batch, gen_steps: in
     the idle shares, the naive path's and the first drive's eager ms, and a
     ``torch.profiler`` breakdown of each step. The engine is built outside
     the timed spans."""
-    engine, drive_steps = timed["engine"], PROMPT_LEN + gen_steps - 1
+    engine, drive_steps = timed["engine"], prompts.shape[1] + gen_steps - 1
     generate_s = timed["seconds"]["generate"]
     prefill_ms = timed["seconds"]["prefill"] * 1e3
     decode_ms = generate_s * 1e3 / drive_steps
@@ -1260,7 +1344,7 @@ def phase_serve_hybrid(cfg) -> dict:
     p0 = _unbind_layers(model.params["layers"], cfg.n_layers)[0]
     with torch.no_grad():
         h0 = rmsnorm(p0["ln"], embed(model.params["emb"], prompts), cfg.norm_eps)
-        _, (conv_fwd, st_fwd) = mamba2_forward(p0["mixer"], cfg, h0, impl="kernel")
+        _, (conv_fwd, st_fwd) = mamba2_forward(p0["mixer"], cfg, h0, scan="kernel")
         cache = model.init_cache(BATCH, 1)
         conv, st = cache["conv"][0], cache["ssm"][0]
         for t in range(PROMPT_LEN):
@@ -1290,6 +1374,100 @@ def phase_serve_hybrid(cfg) -> dict:
                 for r in want_by_route["prefill"][name]}
 
     return total_launches(ker), routes_total("fused_ffn"), routes_total("ssd_scan")
+
+
+def phase_serve_audio(cfg) -> dict:
+    """whisper-base at full size through the prefill step (AUDIO_FRAMES
+    seeded frames and AUDIO_MAX_LEN tokens: K1 in the encoder, the decoder
+    and the cross-attention) and the engine (K3 on the self cache and on the
+    cross cache at every layer of every step), kernel path against the naive
+    path on the same weights. The reference's engine never fills the cross
+    caches (they stay zeros); so that K3's cross call does real work, this
+    harness writes the same seeded values into them before each drive's
+    ``generate``, on both paths."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.base import count_params
+
+    t_start = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = LanguageModel(cfg, impl="kernel")
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    naive = LanguageModel(cfg, impl="naive")
+    naive.params = model.params                      # the same weights, not a copy
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, AUDIO_PROMPT), device="cuda",
+                            generator=gen)
+    batches = {"prefill": {
+        "frames": randn(gen, (BATCH, AUDIO_FRAMES, cfg.d_model), torch.bfloat16),
+        "tokens": torch.randint(0, cfg.vocab_size, (BATCH, AUDIO_MAX_LEN), device="cuda",
+                                generator=gen)}}
+    cross_shape = (cfg.n_layers, BATCH, AUDIO_FRAMES, cfg.n_kv_heads, cfg.head_dim)
+    cross = {k: randn(gen, cross_shape, torch.bfloat16) for k in ("cross_k", "cross_v")}
+
+    def fill_cross(engine):
+        for k, v in cross.items():
+            engine.cache[k].copy_(v)
+
+    counters = (flash_attention, flash_decode)
+    drive_steps = AUDIO_PROMPT + AUDIO_GEN_STEPS - 1
+    per_forward = cfg.n_encoder_layers + 2 * cfg.n_layers     # encoder, self, cross
+    want = {"prefill": {"flash_attention": per_forward, "flash_decode": 0},
+            "generate": {"flash_attention": 0, "flash_decode": 2 * cfg.n_layers * drive_steps}}
+    kw = dict(max_len=AUDIO_MAX_LEN, enc_len=AUDIO_FRAMES, prepare=fill_cross)
+
+    ker = drive(model, prompts, batches, counters, AUDIO_GEN_STEPS, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    ref = drive(naive, prompts, batches, counters, AUDIO_GEN_STEPS, **kw)
+    timed = drive(model, prompts, batches, counters, AUDIO_GEN_STEPS, **kw)
+    check_drives("serve_audio", cfg, ker, ref, timed, want, AUDIO_GEN_STEPS)
+    if not torch.equal(ker["engine"].cache["cross_k"], cross["cross_k"]):
+        raise AssertionError("serve_audio: the decode step wrote the cross cache")
+    kl, rl = ker["logits"], ref["logits"]
+    errs = {"prefill_kernel_vs_naive": logits_agree("audio: prefill step, kernel vs naive",
+                                                    kl["prefill"], rl["prefill"]),
+            "engine_kernel_vs_naive": logits_agree("audio: engine, kernel vs naive",
+                                                   kl["engine"], rl["engine"])}
+    # the same comparison where the cross-attention contributes nothing: the
+    # naive path on frames of zeros (the encoder's output, and so the cross
+    # keys and values, are then zeros) and on the cross caches as the
+    # reference's engine leaves them (zeros)
+    zero_frames = {"prefill": {**batches["prefill"],
+                               "frames": torch.zeros_like(batches["prefill"]["frames"])}}
+    blind = drive(naive, prompts, zero_frames, counters, AUDIO_GEN_STEPS,
+                  max_len=AUDIO_MAX_LEN, enc_len=AUDIO_FRAMES)["logits"]
+    rel, blind_rel = {}, {}
+    for part in ("prefill", "engine"):
+        rel[part] = rel_err(kl[part], rl[part])
+        blind_rel[part] = rel_err(blind[part], rl[part])
+        if rel[part] > AUDIO_LOGIT_REL_NORM:
+            raise AssertionError(f"serve_audio: {part} logits, kernel vs naive: relative norm "
+                                 f"error {rel[part]} > {AUDIO_LOGIT_REL_NORM}")
+        if blind_rel[part] < AUDIO_BLIND_MARGIN * AUDIO_LOGIT_REL_NORM:
+            raise AssertionError(f"serve_audio: {part} logits move by only {blind_rel[part]} "
+                                 "without the cross-attention: the bound could not see it fail")
+    row = {"phase": "serve_audio", "arch": cfg.name, "dtype": "bfloat16",
+           "n_layers": {"encoder": cfg.n_encoder_layers, "decoder": cfg.n_layers},
+           "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "D": cfg.head_dim},
+           "n_params": count_params(model.specs()), "batch": BATCH,
+           "prefill_frames": AUDIO_FRAMES, "prefill_tokens": AUDIO_MAX_LEN,
+           "prompt_len": AUDIO_PROMPT, "gen_steps": AUDIO_GEN_STEPS, "max_len": AUDIO_MAX_LEN,
+           "enc_len": AUDIO_FRAMES,
+           "cross_caches": "seeded values written by this harness before each generate (the "
+                           "reference's engine leaves them zeros); the same on both paths",
+           "launches": ker["launches"], "logit_max_abs_diff": errs,
+           "logit_rel_err": {"kernel_vs_naive": rel, "bound": AUDIO_LOGIT_REL_NORM,
+                             "naive_without_cross_attention": blind_rel},
+           "logit_spread": {part: float(rl[part].float().std()) for part in ("prefill", "engine")},
+           "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
+           "kernel_runs_bit_identical": True,
+           **serve_times(ker, ref, timed, prompts, batches["prefill"], AUDIO_GEN_STEPS),
+           "max_memory_allocated_bytes": peak}
+    row["phase_s"] = time.perf_counter() - t_start
+    emit(row)
+    return total_launches(ker)
 
 
 def free_memory() -> None:
@@ -1550,6 +1728,7 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
 # the training path
 # --------------------------------------------------------------------------------
 
+SCAN_RANGE = "ssd_chunked"      # the naive scan's range in train_hybrid's profile
 KERNEL_CLASSES = (("K1 flash_attention", ("attn_fwd",)),
                   ("K2a flash_attention_bwd_dq", ("attn_bwd_dq",)),
                   ("K2b flash_attention_bwd_dkv", ("attn_bwd_dkv",)),
@@ -1560,9 +1739,11 @@ KERNEL_CLASSES = (("K1 flash_attention", ("attn_fwd",)),
                   ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "nvjet")))
 
 
-def profile_step(fn, top: int = 15) -> dict:
+def profile_step(fn, top: int = 15, ranges: tuple = ()) -> dict:
     """One call of ``fn`` under torch.profiler: the device time summed by
-    kernel name, the top ``top`` of them, and the sums by class."""
+    kernel name, the top ``top`` of them, and the sums by class; with
+    ``ranges`` (names of record_function ranges that ``fn`` opens), each
+    range's device time as ``range_device_ms`` reads it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1570,9 +1751,11 @@ def profile_step(fn, top: int = 15) -> dict:
         fn()
         torch.cuda.synchronize()
     # the device's own events (kernels, copies, memsets), not the host-side
-    # operators that launched them, which carry the same time again
+    # operators that launched them, which carry the same time again, nor the
+    # ranges' spans on the device's timeline, which cover kernels counted here
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in ranges]
     rows.sort(key=lambda r: -r[1])
     by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
     by_class["everything else"] = 0.0
@@ -1581,8 +1764,66 @@ def profile_step(fn, top: int = 15) -> dict:
         name = next((n for n, marks in KERNEL_CLASSES if any(m in low for m in marks)),
                     "everything else")
         by_class[name] += ms
-    return {"device_ms": sum(r[1] for r in rows), "by_class_ms": by_class,
-            "top": [{"kernel": k[:120], "ms": ms, "count": c} for k, ms, c in rows[:top]]}
+    out = {"device_ms": sum(r[1] for r in rows), "by_class_ms": by_class,
+           "top": [{"kernel": k[:120], "ms": ms, "count": c} for k, ms, c in rows[:top]]}
+    if ranges:
+        out["ranges"] = {name: range_device_ms(prof.events(), name) for name in ranges}
+    return out
+
+
+def range_device_ms(events, name: str) -> dict:
+    """The device ms of a profile's record_function ranges ``name``: the
+    kernels launched inside them (the forward, and remat's recompute), and
+    those of the backward nodes that the operators inside them created. A
+    backward node is matched to its forward by the autograd sequence number
+    and the forward's thread; an operator that creates no node records the
+    number the next node will take, so a number also recorded outside every
+    range is not the range's. Each event is counted once."""
+    cpu = torch.autograd.DeviceType.CPU
+    spans = [e for e in events if e.name == name and e.device_type == cpu]
+    inside, stack = set(), list(spans)
+    while stack:
+        for child in stack.pop().cpu_children:
+            inside.add(id(child))
+            stack.append(child)
+    made = {(e.sequence_nr, e.thread) for e in events if id(e) in inside and e.sequence_nr >= 0}
+    made -= {(e.sequence_nr, e.thread) for e in events
+             if id(e) not in inside and e.sequence_nr >= 0 and not e.fwd_thread}
+
+    def hit(e):
+        return bool(e.fwd_thread) and (e.sequence_nr, e.fwd_thread) in made
+
+    def under_hit(e):
+        parent = e.cpu_parent
+        while parent is not None and not hit(parent):
+            parent = parent.cpu_parent
+        return parent is not None
+
+    backward = [e for e in events if hit(e) and not under_hit(e)]
+    forward_ms = sum(e.device_time_total for e in spans) / 1e3
+    backward_ms = sum(e.device_time_total for e in backward) / 1e3
+    return {"calls": len(spans), "backward_nodes": len(backward), "forward_ms": forward_ms,
+            "backward_ms": backward_ms, "ms": forward_ms + backward_ms}
+
+
+@contextlib.contextmanager
+def scan_named():
+    """While open, every naive SSD scan (``models.ssm.ssd_chunked``, which
+    ``mamba2_forward`` looks up at each call, remat's recompute included)
+    runs inside a record_function range named SCAN_RANGE."""
+    from repro_torch.models import ssm
+
+    inner = ssm.ssd_chunked
+
+    def named(*args, **kw):
+        with torch.profiler.record_function(SCAN_RANGE):
+            return inner(*args, **kw)
+
+    ssm.ssd_chunked = named
+    try:
+        yield
+    finally:
+        ssm.ssd_chunked = inner
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1599,34 +1840,16 @@ def param_paths(tree, prefix=""):
 
 
 def phase_train(cfg) -> dict:
-    """tinyllama-1.1b at full width and depth, bf16 parameters, fp32 master
-    weights and moments, remat "full": first the loss and every gradient of
-    impl="kernel" against impl="naive" on the same weights and batch, then
-    TRAIN_STEPS steps of make_train_step on one fixed batch (memorising it
-    makes the loss fall), with the launch counts of the design."""
+    """tinyllama-1.1b at full width and depth through ``train_family`` on one
+    fixed TRAIN_BATCH x TRAIN_SEQ batch from the data pipeline (memorising it
+    makes the loss fall): K1 twice a layer and step under remat "full", K2a
+    and K2b once. The step's and the optimizer's device times are CUDA-graph
+    replays, as this row has always taken them."""
     from repro_torch.data.pipeline import DataConfig, DataLoader
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
-                                                         flash_attention_bwd_dq)
     from repro_torch.launch.train import to_device
     from repro_torch.models import LanguageModel
     from repro_torch.models.base import count_params
-    from repro_torch.train import OptimConfig, init_opt_state, make_train_step
-    from repro_torch.train.optim import apply_updates, tree_leaves, tree_map, tree_unflatten
 
-    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
-
-    def reset():
-        for c in counters:
-            c.launches = 0
-
-    def counts():
-        return {c.__name__: c.launches for c in counters}
-
-    model = LanguageModel(cfg, impl="kernel", remat="full")
-    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
-    naive = LanguageModel(cfg, impl="naive", remat="full")
-    naive.params = model.params                      # the same weights, not a copy
     data = DataLoader(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
     try:
         _, batch = next(data)
@@ -1636,100 +1859,13 @@ def phase_train(cfg) -> dict:
     layers = cfg.n_layers
     per_step = {"flash_attention": 2 * layers,       # forward, and its recompute under remat
                 "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
-
-    # 1. the first step's loss and gradients, kernel path against naive path
-    keys = list(param_paths(model.params))
-
-    def loss_and_grads(m):
-        loss = m.loss(batch)
-        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(m.params))
-
-    reset()
-    k_loss, k_grads = loss_and_grads(model)
-    one_step = counts()
-    if one_step != per_step:
-        raise AssertionError(f"launches in one loss+backward {one_step}, expected {per_step}")
-    n_loss, n_grads = loss_and_grads(naive)
-    # an fp32 oracle on the same (bf16-valued) weights: says which of the two
-    # bf16 paths is off where they disagree
-    exact = LanguageModel(cfg, impl="naive", remat="full")
-    exact.load_params(tree_map(lambda p: p.detach().float(), model.params))
-    e_loss, e_grads = loss_and_grads(exact)
-    del exact
-    if counts() != per_step:
-        raise AssertionError("the naive path launched a kernel")
-    grad_rel = {"kernel_vs_naive": {}, "kernel_vs_fp32": {}, "naive_vs_fp32": {}}
-    for key, kg, ng, eg in zip(keys, k_grads, n_grads, e_grads):
-        if not bool(torch.isfinite(kg).all()) or float(kg.float().norm()) == 0.0:
-            raise AssertionError(f"kernel path: gradient of {key} is zero or non-finite")
-        grad_rel["kernel_vs_naive"][key] = rel_err(kg, ng)
-        grad_rel["kernel_vs_fp32"][key] = rel_err(kg, eg)
-        grad_rel["naive_vs_fp32"][key] = rel_err(ng, eg)
-    worst = {k: max(v.values()) for k, v in grad_rel.items()}
-    for key, err in grad_rel["kernel_vs_naive"].items():
-        if err > TRAIN_GRAD_RTOL:
-            raise AssertionError(f"gradient of {key}: kernel vs naive relative error "
-                                 f"{err} > {TRAIN_GRAD_RTOL}")
-        if grad_rel["kernel_vs_fp32"][key] > TRAIN_VS_ORACLE * grad_rel["naive_vs_fp32"][key]:
-            raise AssertionError(f"gradient of {key}: the kernel path is further from the fp32 "
-                                 f"oracle than the naive path: {grad_rel['kernel_vs_fp32'][key]} "
-                                 f"vs {grad_rel['naive_vs_fp32'][key]}")
-    loss_diff = abs(k_loss - n_loss)
-    if loss_diff > TRAIN_LOSS_ATOL:
-        raise AssertionError(f"first-step loss kernel {k_loss} vs naive {n_loss}")
-    del k_grads, n_grads, e_grads
-
-    # 2. the trainer's steps
-    opt_cfg = OptimConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS)
-    opt_state = init_opt_state(model.params, opt_cfg)
-    step = make_train_step(model, opt_cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset()
-    losses, step_s = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        _, opt_state, metrics = step(model.params, opt_state, batch)
-        losses.append(float(metrics["loss"]))        # waits for the step
-        step_s.append(time.perf_counter() - t0)
-    launches = counts()
-    peak_bytes = torch.cuda.max_memory_allocated()
-    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected}")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses {losses}: not all finite, or the last is not below the first")
-
-    # 3. the device's own time for a step: one step captured in a CUDA graph,
-    # replayed (the replays train on; the step counter stays where it was)
-    device_step_ms = device_ms(lambda: step(model.params, opt_state, batch), launches=1, replays=3)
-
-    profile = profile_step(lambda: step(model.params, opt_state, batch))
-    # the optimizer's share of the device time: one apply_updates alone
-    grads = tree_unflatten(model.params, loss_and_grads(model)[1])
-    optimizer_device_ms = device_ms(lambda: apply_updates(model.params, grads, opt_state, opt_cfg),
-                                    launches=1, replays=3)
-    del grads
-
-    host_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3     # median, first step excluded
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    n_matmul = count_params(model.specs()) - cfg.vocab_size * cfg.d_model   # less the lookup table
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn_flops = 12 * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * pairs * layers
-    model_flops = 6 * n_matmul * tokens + attn_flops
-    row = {"phase": "train", "arch": cfg.name, "n_layers": layers, "dtype": "bfloat16",
-           "master_weights": True, "moment_dtype": "float32", "remat": "full",
-           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
-           "losses": losses, "first_step_loss": {"kernel": k_loss, "naive": n_loss, "fp32": e_loss,
-                                                 "abs_diff": loss_diff},
-           "grad_rel_err_max": worst, "grad_rel_err": grad_rel, "launches_per_step": per_step, "launches": launches,
-           "step_ms_host": [x * 1e3 for x in step_s], "step_ms_host_median": host_ms,
-           "step_ms_device": device_step_ms, "device_idle_share": 1 - device_step_ms / host_ms,
-           "tokens_per_s": tokens / (host_ms / 1e3),
-           "model_flops_per_step": model_flops, "mfu_host": model_flops / (host_ms / 1e3) / 989e12,
-           "mfu_device": model_flops / (device_step_ms / 1e3) / 989e12,
-           "max_memory_allocated_bytes": peak_bytes,
-           "optimizer_device_ms": optimizer_device_ms, "profile": profile}
+    n_matmul = count_params(LanguageModel(cfg).specs()) - cfg.vocab_size * cfg.d_model
+    attn_flops = layers * attention_train_flops(TRAIN_BATCH, cfg.n_heads, cfg.head_dim,
+                                                TRAIN_SEQ, TRAIN_SEQ, True)
+    row, launches = train_family("train", cfg, batch, per_step,
+                                 6 * n_matmul * tokens + attn_flops, graphed=True)
+    row.update(n_layers=layers, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
     emit(row)
     return launches
 
@@ -1946,6 +2082,306 @@ def phase_train_mla(full_cfg) -> dict:
     return launches
 
 
+def train_family(phase: str, cfg, batch: dict, per_step: dict, model_flops: float,
+                 graphed: bool = False, **model_kw) -> tuple[dict, dict]:
+    """``cfg`` at full size, bf16 parameters, fp32 master weights and moments
+    (the reference's TRAIN_MSM), remat "full", on one fixed ``batch``: the
+    loss and every gradient leaf of impl="kernel" against impl="naive" and an
+    fp32 oracle on the same weights, the kernel path twice (equal to the
+    bit), then TRAIN_STEPS steps of make_train_step at lr TRAIN_LR, each with
+    the ``per_step`` launches of K1, K2a and K2b, the losses falling.
+    ``model_kw`` goes to every model (the scan). The step's and the
+    optimizer's device times are the profiler's kernel-time sums, or with
+    ``graphed`` the replays of each captured in a CUDA graph (the replays
+    train on; the step counter stays where it was); MFU counts
+    ``model_flops`` a step. The profiled step runs any naive scan inside
+    SCAN_RANGE, and the profile gives that range's device time.
+    Returns the phase's row (not yet emitted) and the steps' launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.base import count_params
+    from repro_torch.train import OptimConfig, init_opt_state, make_train_step
+    from repro_torch.train.optim import apply_updates, tree_leaves, tree_map, tree_unflatten
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    torch.cuda.reset_peak_memory_stats()
+    model = LanguageModel(cfg, impl="kernel", remat="full", **model_kw)
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    naive = LanguageModel(cfg, impl="naive", remat="full", **model_kw)
+    naive.params = model.params                      # the same weights, not a copy
+    keys = list(param_paths(model.params))
+
+    def loss_and_grads(m):
+        loss = m.loss(batch)
+        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(m.params))
+
+    # 1. loss and gradients three ways; the kernel path twice
+    reset()
+    k_loss, k_grads = loss_and_grads(model)
+    if counts() != per_step:
+        raise AssertionError(f"{phase}: launches in one loss+backward {counts()}, "
+                             f"expected {per_step}")
+    again_loss, again = loss_and_grads(model)
+    differ = [key for key, a, b in zip(keys, k_grads, again) if not torch.equal(a, b)]
+    if again_loss != k_loss or differ:
+        raise AssertionError(f"{phase}: two kernel-path passes differ: loss {k_loss} vs "
+                             f"{again_loss}, gradients of {differ}")
+    del again
+    for key, g in zip(keys, k_grads):
+        if not bool(torch.isfinite(g).all()) or float(g.float().norm()) == 0.0:
+            raise AssertionError(f"{phase}: gradient of {key} is zero or non-finite")
+    reset()
+    n_loss, n_grads = loss_and_grads(naive)
+    grad_rel = {"kernel_vs_naive": {key: rel_err(kg, ng)
+                                    for key, kg, ng in zip(keys, k_grads, n_grads)},
+                "kernel_vs_fp32": {}, "naive_vs_fp32": {}}
+    # an fp32 oracle on the same (bf16-valued) weights: says which of the two
+    # bf16 paths is off where they disagree
+    exact = LanguageModel(cfg, impl="naive", remat="full", **model_kw)
+    exact.load_params(tree_map(lambda p: p.detach().float(), model.params))
+    e_loss, e_grads = loss_and_grads(exact)
+    del exact
+    if any(counts().values()):
+        raise AssertionError(f"{phase}: the naive paths launched a kernel: {counts()}")
+    oracle_peak = torch.cuda.max_memory_allocated()
+    for key, kg, ng, eg in zip(keys, k_grads, n_grads, e_grads):
+        grad_rel["kernel_vs_fp32"][key] = rel_err(kg, eg)
+        grad_rel["naive_vs_fp32"][key] = rel_err(ng, eg)
+    del k_grads, n_grads, e_grads
+    free_memory()
+    worst = {k: max(v.values()) for k, v in grad_rel.items()}
+    for key, err in grad_rel["kernel_vs_naive"].items():
+        if err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{phase}: gradient of {key}: kernel vs naive relative error "
+                                 f"{err} > {TRAIN_GRAD_RTOL}")
+        if grad_rel["kernel_vs_fp32"][key] > TRAIN_VS_ORACLE * grad_rel["naive_vs_fp32"][key]:
+            raise AssertionError(f"{phase}: gradient of {key}: the kernel path is further from "
+                                 f"the fp32 oracle than the naive path: "
+                                 f"{grad_rel['kernel_vs_fp32'][key]} vs "
+                                 f"{grad_rel['naive_vs_fp32'][key]}")
+    loss_diff = abs(k_loss - n_loss)
+    if loss_diff > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"{phase}: first-step loss kernel {k_loss} vs naive {n_loss}")
+
+    # 2. the trainer's steps with the reference's recipe (TRAIN_MSM)
+    opt_cfg = OptimConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt_state = init_opt_state(model.params, opt_cfg)
+    step = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, opt_state, metrics = step(model.params, opt_state, batch)
+        losses.append(float(metrics["loss"]))        # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"{phase}: launch counts {launches}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: losses {losses}: not all finite, or the last is not "
+                             "below the first")
+
+    # 3. the device's time for a step and for the optimizer
+    def one_step():
+        return step(model.params, opt_state, batch)
+
+    with scan_named():
+        profile = profile_step(one_step, ranges=(SCAN_RANGE,))
+    grads = tree_unflatten(model.params, loss_and_grads(model)[1])
+
+    def update():
+        return apply_updates(model.params, grads, opt_state, opt_cfg)
+
+    if graphed:
+        device_step_ms = device_ms(one_step, launches=1, replays=3)
+        optimizer_ms = device_ms(update, launches=1, replays=3)
+        ms_from = "CUDA-graph replay of one step"
+    else:
+        device_step_ms = profile["device_ms"]
+        optimizer_ms = profile_step(update, top=5)["device_ms"]
+        ms_from = "torch.profiler kernel-time sum of one step"
+    del grads
+    host_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3     # median, first step excluded
+    tokens = int(batch["tokens"].numel())
+    row = {"phase": phase, "arch": cfg.name, "dtype": "bfloat16", "impl": "kernel",
+           **model_kw, "remat": "full",
+           "recipe": {"source": "TRAIN_MSM (src/repro/core/msm.py)", "master_weights": True,
+                      "moment_dtype": "float32"},
+           "n_params": count_params(model.specs()), "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+           "losses": losses,
+           "first_step_loss": {"kernel": k_loss, "naive": n_loss, "fp32": e_loss,
+                               "abs_diff": loss_diff},
+           "kernel_runs_bit_identical": True,
+           "grad_rel_err_max": worst, "grad_rel_err": grad_rel,
+           "launches_per_step": per_step, "launches": launches,
+           "step_ms_host": [x * 1e3 for x in step_s], "step_ms_host_median": host_ms,
+           "step_ms_device": device_step_ms,
+           "step_ms_device_from": ms_from,
+           "device_idle_share": 1 - device_step_ms / host_ms,
+           "tokens_per_s": tokens / (host_ms / 1e3),          # the decoder's, for whisper
+           "model_flops_per_step": model_flops,
+           "mfu_host": model_flops / (host_ms / 1e3) / 989e12,
+           "mfu_device": model_flops / (device_step_ms / 1e3) / 989e12,
+           "oracle_max_memory_allocated_bytes": oracle_peak,
+           "max_memory_allocated_bytes": peak_bytes,
+           "optimizer_device_ms": optimizer_ms, "profile": profile}
+    del model, naive, opt_state, step
+    free_memory()
+    return row, launches
+
+
+def attention_train_flops(b, h, d, sq, skv, causal) -> int:
+    """K1's forward and K2's backward on one layer: QK^T and PV, three times
+    over (the forward, and twice that in the backward)."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    return 12 * b * h * d * pairs
+
+
+def phase_train_audio(cfg) -> dict:
+    """whisper-base at full size trained on one fixed batch of
+    AUDIO_TRAIN_BATCH x (AUDIO_FRAMES seeded frames, AUDIO_MAX_LEN tokens):
+    ``train_family``, K1 in the encoder, the decoder's self-attention and the
+    cross-attention (each twice a step under remat "full"), K2a and K2b once
+    each a layer and step."""
+    t_start = time.perf_counter()
+    free_memory()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, d = AUDIO_TRAIN_BATCH, cfg.d_model
+    tokens = torch.randint(0, cfg.vocab_size, (b, AUDIO_MAX_LEN), device="cuda", generator=gen)
+    batch = {"frames": randn(gen, (b, AUDIO_FRAMES, d), torch.bfloat16), "tokens": tokens,
+             "labels": torch.roll(tokens, -1, 1)}
+    calls = cfg.n_encoder_layers + 2 * cfg.n_layers
+    per_step = {"flash_attention": 2 * calls, "flash_attention_bwd_dq": calls,
+                "flash_attention_bwd_dkv": calls}
+    # the products a frame and a decoder token go through (fwd + bwd: 6 a
+    # parameter), the cross-attention's keys and values taken over the frames
+    layer = 4 * d * d + 3 * d * cfg.d_ff
+    enc_tok, dec_tok = b * AUDIO_FRAMES, b * AUDIO_MAX_LEN
+    matmul = (enc_tok * (cfg.n_encoder_layers * layer + cfg.n_layers * 2 * d * d)
+              + dec_tok * (cfg.n_layers * (layer + 2 * d * d) + cfg.vocab_size * d))
+    hd = dict(b=b, h=cfg.n_heads, d=cfg.head_dim)
+    attn = (cfg.n_encoder_layers * attention_train_flops(**hd, sq=AUDIO_FRAMES, skv=AUDIO_FRAMES,
+                                                         causal=False)
+            + cfg.n_layers * (attention_train_flops(**hd, sq=AUDIO_MAX_LEN, skv=AUDIO_MAX_LEN,
+                                                    causal=True)
+                              + attention_train_flops(**hd, sq=AUDIO_MAX_LEN, skv=AUDIO_FRAMES,
+                                                      causal=False)))
+    row, launches = train_family("train_audio", cfg, batch, per_step, 6 * matmul + attn)
+    row.update(batch=b, frames=AUDIO_FRAMES, decoder_tokens=AUDIO_MAX_LEN,
+               n_layers={"encoder": cfg.n_encoder_layers, "decoder": cfg.n_layers},
+               frames_per_s=enc_tok / (row["step_ms_host_median"] / 1e3),
+               phase_s=time.perf_counter() - t_start)
+    emit(row)
+    return launches
+
+
+def naive_scan_ms(cfg, b: int, s: int) -> dict:
+    """Device ms of the naive chunked scan (``models.ssm.ssd_chunked`` at
+    the model's chunk) on one Mamba-2 layer's training shape, timed alone:
+    the forward, and the forward with its backward, on seeded inputs of the
+    mixer's dtypes (x, B, C bf16; dt, A fp32), not its values. Under remat
+    "full" a layer runs the forward once and forward + backward once a step.
+    A cross-check of the share read from the step's own profile."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x = randn(gen, (b, s, h, p), torch.bfloat16).requires_grad_()
+    dt = (torch.rand((b, s, h), generator=gen, device="cuda") * 0.1).requires_grad_()
+    a = -torch.rand((h,), generator=gen, device="cuda").requires_grad_()
+    b_, c_ = (randn(gen, (b, s, n), torch.bfloat16).requires_grad_() for _ in range(2))
+    dy = randn(gen, (b, s, h, p), torch.bfloat16)
+    calls = 3
+
+    def fwd():
+        with torch.no_grad():
+            return ssd_chunked(x, dt, a, b_, c_, cfg.ssm_chunk)
+
+    def fwd_bwd():
+        y, _ = ssd_chunked(x, dt, a, b_, c_, cfg.ssm_chunk)
+        return torch.autograd.grad(y, (x, dt, a, b_, c_), dy)
+
+    # the profiler's kernel-time sums over ``calls`` calls: a CUDA-graph
+    # capture of the backward on these leaf inputs raises ("operation would
+    # make the legacy stream depend on a capturing blocking stream")
+    fwd_bwd()
+    out = {"shape": {"B": b, "S": s, "H": h, "P": p, "N": n, "chunk": cfg.ssm_chunk},
+           "ms_from": f"torch.profiler kernel-time sum over {calls} calls, divided by {calls}"}
+    for key, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        prof = profile_step(lambda: [fn() for _ in range(calls)], top=6)
+        out[f"{key}_ms"] = prof["device_ms"] / calls
+        out[f"{key}_profile"] = prof
+    return out
+
+
+def phase_train_hybrid(cfg) -> dict:
+    """zamba2-1.2b at full size trained on one fixed TRAIN_BATCH x TRAIN_SEQ
+    batch with impl="kernel" and scan="naive" (K5 has no backward; the
+    reference trains through its jnp scan): ``train_family``, K1 twice, K2a
+    and K2b once per shared-block call and step. The naive scan's share of
+    the step's device time is read from the step's own profile (its range,
+    forward, recompute and backward); ``naive_scan_ms`` on one layer's shape,
+    times the layers, cross-checks it."""
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.launch.train import to_device
+
+    t_start = time.perf_counter()
+    free_memory()
+    data = DataLoader(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    try:
+        _, batch = next(data)
+    finally:
+        data.close()
+    batch = to_device(batch, torch.device("cuda"))
+    calls = cfg.n_layers // cfg.attn_every
+    per_step = {"flash_attention": 2 * calls, "flash_attention_bwd_dq": calls,
+                "flash_attention_bwd_dkv": calls}
+    d, tokens = cfg.d_model, TRAIN_BATCH * TRAIN_SEQ
+    shared = 4 * d * cfg.n_heads * cfg.head_dim + 3 * d * cfg.d_ff
+    mixer = d * (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads) + cfg.d_inner * d
+    matmul = cfg.n_layers * mixer + calls * shared + cfg.vocab_size * d   # tied head
+    length = cfg.ssm_chunk
+    chunks = -(-TRAIN_SEQ // length)
+    scan = (TRAIN_BATCH * cfg.ssm_heads * chunks * 2 * length
+            * (length * cfg.ssm_state + length * cfg.ssm_head_dim
+               + 2 * cfg.ssm_state * cfg.ssm_head_dim))
+    flops = (6 * matmul * tokens + 3 * scan * cfg.n_layers
+             + calls * attention_train_flops(TRAIN_BATCH, cfg.n_heads, cfg.head_dim, TRAIN_SEQ,
+                                             TRAIN_SEQ, True))
+    row, launches = train_family("train_hybrid", cfg, batch, per_step, flops, scan="naive")
+    in_step = row["profile"]["ranges"][SCAN_RANGE]
+    if in_step["calls"] != 2 * cfg.n_layers or not in_step["backward_nodes"]:
+        raise AssertionError(f"train_hybrid: the profiled step's naive-scan ranges {in_step}: "
+                             f"expected {2 * cfg.n_layers} calls (forward and recompute) "
+                             "and their backward nodes")
+    alone = naive_scan_ms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    alone_step_ms = cfg.n_layers * (alone["fwd_ms"] + alone["fwd_bwd_ms"])
+    row.update(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, n_layers=cfg.n_layers,
+               shared_block_calls=calls,
+               naive_scan={**in_step, "from": f"the step's profile, range {SCAN_RANGE!r}",
+                           "share_of_step_device_ms": in_step["ms"] / row["profile"]["device_ms"],
+                           "alone": {**alone, "layers": cfg.n_layers, "per_step_ms": alone_step_ms,
+                                     "share_of_step_device_ms":
+                                         alone_step_ms / row["profile"]["device_ms"]}},
+               phase_s=time.perf_counter() - t_start)
+    emit(row)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2000,6 +2436,8 @@ def main() -> int:
         emit(row)
     fa, fd, fd_more, fa_models = phase_checks(cfg, hybrid, configs.get(LONG_ARCH), vlm, moe, mla)
     fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH), mla)
+    audio = configs.get(AUDIO_ARCH)
+    fam = phase_family_checks(audio, hybrid)
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
@@ -2008,6 +2446,9 @@ def main() -> int:
     moe_launches = phase_serve_routed("serve_moe", moe, MOE_LAYERS, MOE_FP32_LAYERS)
     mla_launches = phase_serve_routed("serve_mla", mla, MLA_LAYERS, MLA_FP32_LAYERS)
     train_mla_launches = phase_train_mla(mla)
+    audio_launches = phase_serve_audio(audio)
+    train_audio_launches = phase_train_audio(audio)
+    train_hybrid_launches = phase_train_hybrid(hybrid)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -2016,11 +2457,11 @@ def main() -> int:
     def bwd_shapes(part):
         return {key: {"shape": row["shape"], "plan": row["plan"], **timing(row[part]),
                       "library_ms": row["library_ms"], "library_kernels": row["library_kernels"]}
-                for key, row in bwd_more.items()}
+                for key, row in {**bwd_more, **fam["bwd"]}.items()}
 
     fa_shapes = {key: {"shape": row["shape"], "max_abs_err": row["max_abs_err"], **timing(row),
                        "library_ms": row["library_ms"]}
-                 for key, row in {**fa_more, **fa_models}.items()}
+                 for key, row in {**fa_more, **fa_models, **fam["fa"]}.items()}
 
     def summary(name, source, replaces, launches_by_path, row, err, times, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -2035,7 +2476,10 @@ def main() -> int:
         return {"serve": launches.get(name, 0), "serve_hybrid": hybrid_launches.get(name, 0),
                 "serve_vlm": vlm_launches.get(name, 0), "serve_moe": moe_launches.get(name, 0),
                 "serve_mla": mla_launches.get(name, 0), "train": train_launches.get(name, 0),
-                "train_mla": train_mla_launches.get(name, 0)}
+                "train_mla": train_mla_launches.get(name, 0),
+                "serve_audio": audio_launches.get(name, 0),
+                "train_audio": train_audio_launches.get(name, 0),
+                "train_hybrid": train_hybrid_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]
@@ -2068,7 +2512,7 @@ def main() -> int:
                 more_shapes={key: {"shape": row["shape"], "plan": row["plan"],
                                    "max_abs_err": row["max_abs_err"], **timing(row),
                                    "library_ms": row["library_ms"]}
-                             for key, row in fd_more.items()}),
+                             for key, row in {**fd_more, **fam["fd"]}.items()}),
         summary("fused_ffn", "fused_ffn.cu", "src/repro/kernels/fused_ffn.py:55",
                 by_path("fused_ffn"), ffn_p, ffn_p["max_abs_err"], timing(ffn_p),
                 ffn_p["library_ms"], library_covers=ffn_p["library_covers"],

@@ -3,9 +3,9 @@
 Holds the dense GQA family, the mixture-of-experts family with GQA
 attention (``qwen3-moe-235b-a22b``) and with MLA attention
 (``deepseek-v2-236b``), the vision-language backbone (``internvl2-26b``),
-the attention-free SSM family (``mamba2-1.3b``) and the Mamba-2 +
-shared-attention hybrid (``zamba2-1.2b``); the other architectures are added
-with the model families that run them.
+the attention-free SSM family (``mamba2-1.3b``), the Mamba-2 +
+shared-attention hybrid (``zamba2-1.2b``) and the encoder-decoder
+(``whisper-base``): the reference's ten architectures.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -18,10 +18,11 @@ from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2
 from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2
 from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2
 from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2
+from repro_torch.configs.whisper_base import CONFIG as WHISPER
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in (TINYLLAMA, YI_6B, MISTRAL_NEMO, GRANITE, QWEN3_MOE, MAMBA2, ZAMBA2,
-                        INTERNVL2, DEEPSEEK_V2)
+                        INTERNVL2, DEEPSEEK_V2, WHISPER)
 }
 
 

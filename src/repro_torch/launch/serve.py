@@ -14,7 +14,9 @@ versions (for the smoke configs, ``--arch tinyllama-1.1b-smoke`` or
 the fused kernel (K4). The engine's cache is whatever the model's
 ``init_cache`` returns: KV for attention layers, conv and SSM state for
 Mamba-2 layers, the latent ``ckv`` and rope key ``krope`` for MLA layers
-(``deepseek-v2-236b``).
+(``deepseek-v2-236b``), and for the encoder-decoder (``whisper-base``) also
+the cross caches of the engine's ``enc_len`` rows (64), left as zeros, as the
+reference's engine leaves them.
 """
 from __future__ import annotations
 
@@ -34,15 +36,17 @@ from repro_torch.serve.step import make_decode_step
 class ServingEngine:
     """Minimal batched engine over the decode step. The cache (KV, MLA's
     latent, or conv and SSM state) lives on the model's device, in the model's dtype except the
-    fp32 SSM state, and is updated in place."""
+    fp32 SSM state, and is updated in place. ``enc_len`` sizes the
+    encoder-decoder's cross caches, as in the reference, which never fills
+    them (other families ignore it)."""
 
     def __init__(self, model: LanguageModel, batch: int, max_len: int,
                  sample: str = "greedy", temperature: float = 1.0, top_k: int = 0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, enc_len: int = 64):
         self.model = model
         self.batch = batch
         self.max_len = max_len
-        self.cache = model.init_cache(batch, max_len)
+        self.cache = model.init_cache(batch, max_len, enc_len=enc_len)
         self.decode = make_decode_step(model, sample, temperature, top_k)
         self.generator = generator
         self.lengths = np.zeros(batch, np.int32)

@@ -8,7 +8,11 @@ Config -> model -> train step (loss, gradients through the kernels, AdamW)
 same path with the kernels' plain versions (for the smoke configs,
 ``--arch tinyllama-1.1b-smoke``). Without ``--remat`` the recipe is the
 reference's training policy: per-block full remat, fp32 moments, fp32 master
-weights.
+weights. Attention takes ``--impl``; a Mamba-2 layer's scan is always the
+naive chunked scan (``scan="naive"``): K5 has no backward, and the reference
+trains through its jnp scan. The data pipeline makes tokens only, so the
+encoder-decoder (``whisper-base``), whose batch needs ``frames``, trains
+through ``train.make_train_step`` on a batch its caller builds.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ DEFAULT_REMAT = "full"      # the reference's training policy (TRAIN_MSM)
 
 def build(args, device):
     cfg = configs.get(args.arch)
-    model = LanguageModel(cfg, impl=args.impl, remat=args.remat or DEFAULT_REMAT)
+    model = LanguageModel(cfg, impl=args.impl, remat=args.remat or DEFAULT_REMAT, scan="naive")
     model.init(torch.Generator(device=device).manual_seed(args.seed), device=device)
     opt_cfg = OptimConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
     opt_state = init_opt_state(model.params, opt_cfg)
@@ -70,6 +74,10 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
+    if configs.get(args.arch).family == "audio":
+        raise SystemExit(f"{args.arch}: the data pipeline makes no 'frames' for the encoder, "
+                         "as the reference's makes none; train it through "
+                         "train.make_train_step on a batch that holds them")
     device = resolve_device(args.device)
     model, cfg, opt_state, step_fn = build(args, device)
     data = DataLoader(DataConfig(cfg.vocab_size, args.seq_len, args.global_batch,

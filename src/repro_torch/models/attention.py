@@ -95,6 +95,10 @@ def gqa_specs(cfg: ModelConfig) -> Specs:
 def gqa_project_qkv(params, cfg: ModelConfig, x, positions):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # JAX promotes a bf16 input against fp32 weights, where torch's @ raises:
+    # whisper's first encoder block takes the frames in bf16 whatever the
+    # parameters' dtype (lm.py:_forward_audio, as the reference casts them)
+    x = x.to(torch.promote_types(x.dtype, params["wq"].dtype))
     q = (x @ params["wq"]).reshape(b, s, h, hd)
     k = (x @ params["wk"]).reshape(b, s, kvh, hd)
     v = (x @ params["wv"]).reshape(b, s, kvh, hd)
@@ -130,6 +134,25 @@ def gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int,
         out = decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
     out = out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
     return out, cache_k, cache_v
+
+
+def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
+    """One token's cross-attention (the encoder-decoder's): queries from
+    ``x`` (B,1,d), keys and values the cached (B,S_enc,KVH,D), every row
+    valid, no rotary embedding. ``impl="kernel"`` runs K3 at kv_len = S_enc,
+    ``"naive"`` the plain ``decode_attention`` the reference takes. An empty
+    cache (S_enc = 0) adds nothing, as the reference's sum over no keys."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not one of {IMPLS}")
+    b, enc_len = x.shape[0], cross_k.shape[1]
+    if enc_len == 0:
+        return torch.zeros_like(x)
+    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim).to(cross_k.dtype)
+    if impl == "kernel":
+        out = kops.flash_decode_op(q[:, 0], cross_k, cross_v, enc_len)
+    else:
+        out = decode_attention(q, cross_k, cross_v, kv_len=enc_len)
+    return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
 
 
 # --------------------------------------------------------------------------------

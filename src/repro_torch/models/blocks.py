@@ -76,9 +76,9 @@ def mamba_block_specs(cfg: ModelConfig) -> Specs:
     return {"ln": rmsnorm_specs(cfg.d_model), "mixer": ssm_mod.ssm_specs(cfg)}
 
 
-def mamba_block(params, cfg: ModelConfig, x, impl="kernel"):
+def mamba_block(params, cfg: ModelConfig, x, scan="kernel"):
     h = rmsnorm(params["ln"], x, cfg.norm_eps)
-    y, _ = ssm_mod.mamba2_forward(params["mixer"], cfg, h, impl=impl)
+    y, _ = ssm_mod.mamba2_forward(params["mixer"], cfg, h, scan=scan)
     return x + y
 
 
@@ -104,5 +104,42 @@ def shared_attn_block(params, cfg: ModelConfig, x, positions, impl="kernel", fus
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     h = attn.gqa_attention(params["attn"], cfg, h, positions, impl=impl)
     x = x + h
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    return x + ffn(params["ffn"], h, fused=fused)
+
+
+# ---- encoder/decoder (Whisper backbone) ------------------------------------------------
+
+def encoder_block_specs(cfg: ModelConfig) -> Specs:
+    return dense_block_specs(cfg)
+
+
+def encoder_block(params, cfg: ModelConfig, x, positions, impl="kernel", fused=False):
+    return dense_block(params, cfg, x, positions, impl=impl, causal=False, fused=fused)
+
+
+def decoder_block_specs(cfg: ModelConfig) -> Specs:
+    s = dense_block_specs(cfg)
+    s["ln_cross"] = rmsnorm_specs(cfg.d_model)
+    s["cross"] = attn.gqa_specs(cfg)
+    return s
+
+
+def decoder_block(params, cfg: ModelConfig, x, enc_out, positions, impl="kernel",
+                  fused=False):
+    """Causal self-attention, then cross-attention (queries from the
+    decoder, keys and values from ``enc_out``, no rotary embedding, no
+    mask), then the SwiGLU FFN."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    x = x + attn.gqa_attention(params["attn"], cfg, h, positions, causal=True, impl=impl)
+    h = rmsnorm(params["ln_cross"], x, cfg.norm_eps)
+    b, s, _ = h.shape
+    s_enc = enc_out.shape[1]
+    cross = params["cross"]
+    q = (h @ cross["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (enc_out @ cross["wk"]).reshape(b, s_enc, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ cross["wv"]).reshape(b, s_enc, cfg.n_kv_heads, cfg.head_dim)
+    o = attn.sdpa(q, k, v, causal=False, impl=impl)
+    x = x + o.reshape(b, s, -1) @ cross["wo"]
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + ffn(params["ffn"], h, fused=fused)

@@ -1,25 +1,35 @@
 """Model assembly: specs, init, forward (loop over the stacked layers), loss,
 and the prefill/decode paths with layer-stacked caches.
 
-    model = LanguageModel(cfg, impl="kernel", remat="none", fused_ffn=False)
+    model = LanguageModel(cfg, impl="kernel", remat="none", fused_ffn=False,
+                          scan=None)          # scan: default impl
     model.init(generator, dtype, device)      # or model.load_params(tree)
     h, aux = model.forward(batch)             # train/prefill hidden states
     loss = model.loss(batch)                  # differentiable scalar
-    cache = model.init_cache(batch_size, max_len)
+    cache = model.init_cache(batch_size, max_len, enc_len=0)
     logits, cache = model.decode_step(cache, tokens, pos)
 
 The module holds its parameters as one nested ``ParameterDict`` with the
 reference's keys and stacked shapes (layer parameters carry a leading
-``layers`` axis), so a parameter tree converts 1:1. The ``dense`` (GQA),
-``vlm`` (the dense family, whose batch may carry ``patch_embeds`` for its
-first positions), ``moe`` (routed experts, after ``first_k_dense``
-dense-FFN layers), ``ssm`` (Mamba-2) and ``hybrid`` (Mamba-2 with one shared
-attention + MLP block after every ``attn_every``-th layer, Zamba-2) families
-are assembled. Attention is GQA, or MLA where ``cfg.use_mla``
-(deepseek-v2-236b): its cache holds the latent ``ckv`` and the shared rope
-key ``krope`` a layer, and its decode step is the absorbed form.
-``impl="kernel"`` runs attention through K1 (prefill, MLA's too) and K3 (GQA
-decode) and the SSD scan through K5; ``fused_ffn=True`` runs every SwiGLU MLP
+``layers`` axis), so a parameter tree converts 1:1. Every family of the
+reference is assembled: ``dense`` (GQA), ``vlm`` (the dense family, whose
+batch may carry ``patch_embeds`` for its first positions), ``moe`` (routed
+experts, after ``first_k_dense`` dense-FFN layers), ``ssm`` (Mamba-2),
+``hybrid`` (Mamba-2 with one shared attention + MLP block after every
+``attn_every``-th layer, Zamba-2) and ``audio`` (the encoder-decoder,
+whisper: a non-causal encoder over the batch's ``frames``, a decoder with
+causal self-attention and cross-attention to the encoder's output).
+Attention is GQA, or MLA where ``cfg.use_mla`` (deepseek-v2-236b): its
+cache holds the latent ``ckv`` and the shared rope key ``krope`` a layer,
+and its decode step is the absorbed form.
+
+``impl="kernel"`` runs attention through K1 (prefill, MLA's too; K2a/K2b
+behind it in the backward) and K3 (GQA decode, the encoder-decoder's cross
+decode too); ``scan`` picks the SSD scan apart from it: ``"kernel"`` (K5,
+forward only: a gradient through it raises) or ``"naive"`` (the plain
+chunked scan, differentiable), by default what ``impl`` says, so that a
+model trains with K1/K2 attention beside the naive scan (``scan="naive"``,
+as ``launch/train`` builds it). ``fused_ffn=True`` runs every SwiGLU MLP
 but the routed experts through K4 (forward only).
 """
 from __future__ import annotations
@@ -31,11 +41,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.attention import IMPLS, gqa_decode, mla_decode
+from repro_torch.models.attention import IMPLS, cross_decode, gqa_decode, mla_decode
 from repro_torch.models.base import Specs, axes_tree, init_params, stack_specs
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_specs,
                                        ffn, logits_for_tokens, rmsnorm, rmsnorm_specs)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import SCANS
 
 REMATS = ("none", "dots", "full")
 # what remat "dots" keeps: the outputs of the matrix products, as
@@ -60,9 +71,7 @@ def _maybe_remat(fn, remat: str, *args):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **context)
 
 
-# where what is not assembled yet stands in ROADMAP.md, queue 1
-FAMILY_ROADMAP_ITEM = {"audio": "item 11 (encoder-decoder)"}
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def _layer_groups(cfg: ModelConfig) -> list[tuple[str, int, int]]:
@@ -95,17 +104,20 @@ def _unbind_layers(stacked, n: int) -> list[dict]:
 
 class LanguageModel(nn.Module):
     def __init__(self, cfg: ModelConfig, impl: str = "kernel", remat: str = "none",
-                 fused_ffn: bool = False):
+                 fused_ffn: bool = False, scan: str | None = None):
         super().__init__()
+        scan = impl if scan is None else scan
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not one of {IMPLS}")
+        if scan not in SCANS:
+            raise ValueError(f"scan {scan!r} not one of {SCANS}")
         if remat not in REMATS:
             raise ValueError(f"remat {remat!r} not one of {REMATS}")
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-                                      f"ROADMAP.md queue 1, {FAMILY_ROADMAP_ITEM[cfg.family]}")
+            raise ValueError(f"family {cfg.family!r} ({cfg.name}) not one of {FAMILIES}")
         self.cfg = cfg
         self.impl = impl            # sdpa / decode implementation
+        self.scan = scan            # SSD scan implementation (Mamba-2 layers)
         self.remat = remat          # per-block rematerialization policy
         self.fused_ffn = fused_ffn  # SwiGLU through K4 (MemoryPolicy.fused_ffn)
         self.params = nn.ParameterDict()
@@ -122,6 +134,10 @@ class LanguageModel(nn.Module):
         elif cfg.family == "moe":
             for key, _, n in _layer_groups(cfg):
                 s[key] = stack_specs(blocks.moe_block_specs(cfg, key == "dense_layers"), n)
+        elif cfg.family == "audio":
+            s["enc_layers"] = stack_specs(blocks.encoder_block_specs(cfg), cfg.n_encoder_layers)
+            s["layers"] = stack_specs(blocks.decoder_block_specs(cfg), cfg.n_layers)
+            s["ln_enc"] = rmsnorm_specs(cfg.d_model)
         else:
             s["layers"] = stack_specs(blocks.mamba_block_specs(cfg), cfg.n_layers)
         if cfg.family == "hybrid":
@@ -164,9 +180,11 @@ class LanguageModel(nn.Module):
     # ---------------------------------------------------------------- forward --
     def forward(self, batch):
         """batch: {"tokens": (B,S) int, optional "positions": (B,S), optional
-        "patch_embeds": (B,P,d) for a vision front end}. Returns (hidden
-        (B,S,d), aux_loss fp32)."""
+        "patch_embeds": (B,P,d) for a vision front end; "frames" (B,S_enc,d)
+        for the encoder-decoder}. Returns (hidden (B,S,d), aux_loss fp32)."""
         cfg, params = self.cfg, self.params
+        if cfg.family == "audio":
+            return self._forward_audio(batch)
         x = self._embed_inputs(batch)
         b, s = x.shape[:2]
         positions = batch.get("positions")
@@ -191,7 +209,7 @@ class LanguageModel(nn.Module):
                                           fused=self.fused_ffn)
         else:
             def body(x_, p_):
-                return blocks.mamba_block(p_, cfg, x_, impl=self.impl)
+                return blocks.mamba_block(p_, cfg, x_, scan=self.scan)
 
             def shared(x_, p_):
                 return blocks.shared_attn_block(p_, cfg, x_, positions, impl=self.impl,
@@ -204,6 +222,42 @@ class LanguageModel(nn.Module):
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return h, aux
 
+    def _forward_audio(self, batch):
+        """The encoder over ``batch["frames"]`` (B,S_enc,d; a stubbed conv
+        front end's output), then ``ln_enc``; the decoder over the embedded
+        ``batch["tokens"]`` against it, then ``ln_f``. The frames are cast to
+        bf16 whatever the parameters' dtype, as the reference casts them
+        (``lm.py:_forward_audio``): with fp32 parameters the first encoder
+        block's first norm stays bf16 and its residual turns the stream
+        fp32, as JAX's promotion does (``attention.gqa_project_qkv``)."""
+        cfg, params = self.cfg, self.params
+        frames = batch["frames"]
+        b, s_enc, _ = frames.shape
+        enc_pos = torch.arange(s_enc, dtype=torch.int32, device=frames.device).expand(b, s_enc)
+        x = frames.to(torch.bfloat16)
+
+        def enc_body(x_, p_):
+            return blocks.encoder_block(p_, cfg, x_, enc_pos, impl=self.impl,
+                                        fused=self.fused_ffn)
+
+        for p in _unbind_layers(params["enc_layers"], cfg.n_encoder_layers):
+            x = _maybe_remat(enc_body, self.remat, x, p)
+        enc_out = rmsnorm(params["ln_enc"], x, cfg.norm_eps)
+
+        tokens = batch["tokens"]
+        s_dec = tokens.shape[1]
+        dec_pos = torch.arange(s_dec, dtype=torch.int32, device=tokens.device).expand(b, s_dec)
+        y = embed(params["emb"], tokens)
+
+        def dec_body(y_, p_, enc_):
+            return blocks.decoder_block(p_, cfg, y_, enc_, dec_pos, impl=self.impl,
+                                        fused=self.fused_ffn)
+
+        for p in _unbind_layers(params["layers"], cfg.n_layers):
+            y = _maybe_remat(dec_body, self.remat, y, p, enc_out)
+        h = rmsnorm(params["ln_f"], y, cfg.norm_eps)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
     # ------------------------------------------------------------------- loss --
     def loss(self, batch, aux_weight: float = 0.01):
         """batch: {"tokens", "labels": (B,S) int, optional "positions",
@@ -215,13 +269,18 @@ class LanguageModel(nn.Module):
         return ce + aux_weight * aux
 
     # ------------------------------------------------------------------ cache --
-    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   enc_len: int = 0):
         """Zeroed caches; dtype and device default to the parameters'. Dense,
         vlm and moe: (L,B,S,KVH,D) ``k``/``v``; with MLA instead ``ckv``
         (L,B,S,kv_lora) and ``krope`` (L,B,S,rope_head_dim). SSM: ``conv``
         (L,B,kw-1,C) and ``ssm`` (L,B,H,P,N), the SSM state always fp32.
         Hybrid: those, and ``shared_k``/``shared_v`` (L // attn_every, B, S,
-        KVH, D) for the shared block's calls.
+        KVH, D) for the shared block's calls. Audio: ``k``/``v``, and
+        ``cross_k``/``cross_v`` (L,B,enc_len,KVH,D) for the cross-attention,
+        which nothing fills: the decode step attends over them as they are,
+        as in the reference (zeros unless the caller writes them). Other
+        families ignore ``enc_len``.
 
         A ``moe`` config with GQA attention and first_k_dense > 0 is refused:
         the reference's decode step scans ``layers`` (n_layers - first_k_dense
@@ -241,10 +300,15 @@ class LanguageModel(nn.Module):
             shape = (cfg.n_layers, batch, max_len)
             return {"ckv": torch.zeros(*shape, cfg.kv_lora_rank, dtype=dtype, device=device),
                     "krope": torch.zeros(*shape, cfg.rope_head_dim, dtype=dtype, device=device)}
-        if cfg.family in ("dense", "vlm", "moe"):
+        if cfg.family in ("dense", "vlm", "moe", "audio"):
             shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+            cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}
+            if cfg.family == "audio":
+                shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+                cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+                cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+            return cache
         cache = self._ssm_cache(batch, dtype, device)
         if cfg.family == "hybrid":
             shape = (cfg.n_layers // cfg.attn_every, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -275,6 +339,10 @@ class LanguageModel(nn.Module):
             for key, off, n in _layer_groups(cfg):
                 for i, p in enumerate(_unbind_layers(params[key], n), start=off):
                     x = self._attn_mlp_decode(p, x, cache[ka][i], cache[kb][i], pos)
+        elif cfg.family == "audio":
+            for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
+                x = self._decoder_decode(p, x, cache["k"][i], cache["v"][i],
+                                         cache["cross_k"][i], cache["cross_v"][i], pos)
         else:
             for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
                 x, _, _ = blocks.mamba_block_decode(p, cfg, x, cache["conv"][i],
@@ -299,3 +367,15 @@ class LanguageModel(nn.Module):
         if "ffn" in p:
             return x + ffn(p["ffn"], h, fused=self.fused_ffn)
         return x + moe_ffn(p["moe"], cfg, h, fused=self.fused_ffn)[0]
+
+    def _decoder_decode(self, p, x, cache_k, cache_v, cross_k, cross_v, pos: int):
+        """One token through a decoder block: causal self-attention against
+        ``k``/``v`` (written in place), cross-attention against the
+        encoder's cached keys and values (read only), the MLP."""
+        cfg = self.cfg
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + gqa_decode(p["attn"], cfg, h, cache_k, cache_v, pos, impl=self.impl)[0]
+        h = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        x = x + cross_decode(p["cross"], cfg, h, cross_k, cross_v, impl=self.impl)
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + ffn(p["ffn"], h, fused=self.fused_ffn)

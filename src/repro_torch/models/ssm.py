@@ -2,11 +2,15 @@
 
 Chunked SSD algorithm: within a chunk the token mixing is the quadratic
 "attention-like" form; across chunks a linear recurrence carries the
-(heads, head_dim, state) SSM state. Two implementations of the scan:
+(heads, head_dim, state) SSM state. Two implementations of the scan, picked
+by ``scan`` (``LanguageModel``'s own choice, apart from attention's
+``impl``):
 
-* ``naive``  — ``ssd_chunked``, plain torch, differentiable;
+* ``naive``  — ``ssd_chunked``, plain torch, differentiable: the training
+  path, as the reference trains through its jnp chunked scan;
 * ``kernel`` — ``kernels.ops.ssd_scan_op``: the hand-written K5 on the card,
-  its plain version for CPU tensors. Forward only.
+  its plain version for CPU tensors. Forward only: asked for a gradient, it
+  raises.
 
 Decode keeps O(1)-in-sequence state: (conv window, SSM state), updated in
 place in the caller's cache.
@@ -21,7 +25,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.base import P, Specs
 
-IMPLS = ("naive", "kernel")
+SCANS = ("naive", "kernel")
 
 
 def ssm_specs(cfg: ModelConfig) -> Specs:
@@ -85,12 +89,12 @@ def _gated_out(params, cfg: ModelConfig, y, z, out_dtype):
     return yz @ params["out_proj"]
 
 
-def mamba2_forward(params, cfg: ModelConfig, x, chunk: int | None = None, impl: str = "naive"):
+def mamba2_forward(params, cfg: ModelConfig, x, chunk: int | None = None, scan: str = "naive"):
     """Full Mamba-2 mixer over (B,S,d). Returns (y, (conv_state, ssm_state)).
-    ``impl="naive"`` scans with ``ssd_chunked`` (chunk ``cfg.ssm_chunk``),
-    ``impl="kernel"`` with K5 (its own chunk length)."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl {impl!r} not one of {IMPLS}")
+    ``scan="naive"`` scans with ``ssd_chunked`` (chunk ``cfg.ssm_chunk``),
+    ``scan="kernel"`` with K5 (its own chunk length)."""
+    if scan not in SCANS:
+        raise ValueError(f"scan {scan!r} not one of {SCANS}")
     di, h, p, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     zxbcdt = x @ params["in_proj"]
     z, xin, b_, c_, dt = _split_proj(cfg, zxbcdt)
@@ -100,7 +104,7 @@ def mamba2_forward(params, cfg: ModelConfig, x, chunk: int | None = None, impl: 
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
     xh = xin.reshape(*xin.shape[:2], h, p)
-    if impl == "kernel":
+    if scan == "kernel":
         y, ssm_state = kops.ssd_scan_op(xh, dt, A, b_, c_)
     else:
         y, ssm_state = ssd_chunked(xh, dt, A, b_, c_, chunk or cfg.ssm_chunk)

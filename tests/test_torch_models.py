@@ -1,6 +1,8 @@
-"""The dense LanguageModel of the port against the JAX package: parameter
-counts, forward hidden states and decode logits on converted parameters, and
-the port's own prefill-vs-decode agreement."""
+"""The port's LanguageModel against the JAX package: for the dense family
+parameter counts, forward hidden states and decode logits on converted
+parameters, and the port's own prefill-vs-decode agreement; for every
+architecture of ``configs.ARCHS`` the port of the reference's three
+all-arch tests (forward and loss, a train step, two decode steps)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,16 +138,118 @@ def test_own_init_shapes_dtypes_and_std(dtype):
     assert torch.equal(w(model), w(again)) and not torch.equal(w(model), w(other))
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-base", "item 11")])
-def test_other_families_name_their_roadmap_item(arch, item):
-    """What is not ported raises, and says where it is queued: the
-    encoder-decoder family. The port has no config for it yet, so the
-    reference's schema is copied."""
-    cj = jconfigs.get(arch).smoke()
-    fields = tconfigs.ModelConfig.__dataclass_fields__
-    ct = tconfigs.ModelConfig(**{f: getattr(cj, f) for f in fields})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        LanguageModel(ct)
+def test_every_family_is_assembled_and_an_unknown_one_refused():
+    """Every family of the reference's configs builds; one that no config
+    has raises ValueError, as the reference's ``specs`` does."""
+    import dataclasses
+
+    assert {c.family for c in tconfigs.ARCHS.values()} == \
+        {"dense", "vlm", "moe", "ssm", "hybrid", "audio"}
+    assert len(tconfigs.ARCHS) == len(jconfigs.ARCHS) == 10
+    for cfg in tconfigs.ARCHS.values():
+        LanguageModel(cfg.smoke())
+    with pytest.raises(ValueError, match="family 'conv'"):
+        LanguageModel(dataclasses.replace(tconfigs.get(SMOKE), family="conv"))
+
+
+# ---- every architecture: the port of tests/test_models.py:27-74 -------------------------
+
+ARCHS = list(tconfigs.ARCHS)
+
+
+def arch_batch(cfg, seed=1, b=2, s=64):
+    """The batch of tests/test_models.py:13-24 from a numpy seed: tokens as
+    labels; a vision front end's 8 patch embeddings; for the audio family 64
+    frames and the first 16 tokens. Embeddings are bf16-valued, as the
+    reference draws them in bf16."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    out = {"tokens": tokens, "labels": tokens}
+
+    def bf16_valued(shape):
+        x = jnp.asarray(rng.standard_normal(shape, np.float32)).astype(jnp.bfloat16)
+        return np.asarray(x.astype(jnp.float32))
+
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = bf16_valued((b, 8, cfg.d_model))
+    if cfg.family == "audio":
+        out = {"frames": bf16_valued((b, s, cfg.d_model)), "tokens": tokens[:, :16],
+               "labels": tokens[:, :16]}
+    return out
+
+
+def arch_reference_and_port(arch, seed=0):
+    """The reference smoke model in fp32 from its own init and the port on
+    the same parameters (impl="kernel": the kernels' plain versions on the
+    CPU, K5's too). The audio family's reference is its forward with the
+    layer scans unrolled (``tests/test_torch_audio.py``): the reference's
+    own raises in fp32."""
+    from test_torch_audio import UnrolledReference
+
+    cj = jconfigs.get(arch + "-smoke")
+    jm = (UnrolledReference if cj.family == "audio" else JaxLM)(cj)
+    jparams = jm.init(jax.random.PRNGKey(seed), dtype=jnp.float32)
+    tm = LanguageModel(tconfigs.get(arch + "-smoke"))
+    tm.load_params(params_from_numpy(to_numpy_tree(jparams), torch.float32, "cpu"))
+    return jm, jparams, tm
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_and_loss_equal_reference_every_arch(arch):
+    """fp32, 1e-4: hidden states (B, S, d), aux and loss, finite."""
+    jm, jparams, tm = arch_reference_and_port(arch)
+    bt = arch_batch(tm.cfg)
+    jb = {k: jnp.asarray(v) for k, v in bt.items()}
+    want_h, want_aux = jm.forward(jparams, jb)
+    want_loss = jm.loss(jparams, jb)
+    tb = {k: torch.tensor(v) for k, v in bt.items()}
+    with torch.no_grad():
+        got_h, aux = tm.forward(tb)
+        loss = tm.loss(tb)
+    assert got_h.shape == (2, bt["tokens"].shape[1], tm.cfg.d_model)
+    assert bool(torch.isfinite(got_h).all()) and bool(torch.isfinite(loss))
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(float(loss), float(want_loss), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_changes_the_parameters_every_arch(arch):
+    """One make_train_step on the port's own bf16 init (lr 1e-3), K1/K2's
+    dispatch beside the naive scan (``scan="naive"``, as ``launch.train``
+    builds it): finite loss and gradient norm, the parameters moved."""
+    from repro_torch.train import OptimConfig, init_opt_state, make_train_step
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = tconfigs.get(arch + "-smoke")
+    model = LanguageModel(cfg, scan="naive").init(torch.Generator().manual_seed(0),
+                                                  device="cpu")
+    before = [p.detach().clone() for p in tree_leaves(model.params)]
+    opt_cfg = OptimConfig(lr=1e-3)
+    tb = {k: torch.tensor(v) for k, v in arch_batch(cfg).items()}
+    _, _, metrics = make_train_step(model, opt_cfg)(model.params,
+                                                    init_opt_state(model.params, opt_cfg), tb)
+    assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
+    after = tree_leaves(model.params)
+    assert not torch.allclose(before[0].float(), after[0].float())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_two_decode_steps_equal_reference_every_arch(arch):
+    """init_cache(2, 32, enc_len=16) in fp32 on both sides, then two decode
+    steps of token 1 at positions 0 and 1: logits (2, 1, V) within 1e-4."""
+    jm, jparams, tm = arch_reference_and_port(arch)
+    jcache = jm.init_cache(2, 32, dtype=jnp.float32, enc_len=16)
+    tcache = tm.init_cache(2, 32, enc_len=16)
+    assert {k: tuple(v.shape) for k, v in tcache.items()} == \
+        {k: tuple(v.shape) for k, v in jcache.items()}
+    tok = np.ones((2, 1), np.int32)
+    for pos in (0, 1):
+        want, jcache = jm.decode_step(jparams, jcache, jnp.asarray(tok), jnp.int32(pos))
+        with torch.no_grad():
+            got, _ = tm.decode_step(tcache, torch.tensor(tok), pos)
+        assert got.shape == (2, 1, tm.cfg.vocab_size) and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

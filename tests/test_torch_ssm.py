@@ -270,14 +270,14 @@ def test_split_proj_and_specs_equal_reference():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("impl", ["naive", "kernel"])
-def test_mamba2_forward_equals_reference(impl):
+@pytest.mark.parametrize("scan", ["naive", "kernel"])
+def test_mamba2_forward_equals_reference(scan):
     """fp32, one smoke layer, S=80 (no multiple of either chunk length):
     output and both states within 1e-4."""
     cfg_j, cfg_t, pj, pt = one_layer(3)
     xj, xt = both(np.random.default_rng(4).standard_normal((2, 80, cfg_j.d_model), np.float32))
     want, (cs_w, ss_w) = jssm.mamba2_forward(pj, cfg_j, xj)
-    got, (cs, ss) = ssm.mamba2_forward(pt, cfg_t, xt, impl=impl)
+    got, (cs, ss) = ssm.mamba2_forward(pt, cfg_t, xt, scan=scan)
     np.testing.assert_allclose(f32(got), f32(want), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(f32(cs), f32(cs_w), atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(f32(ss), f32(ss_w), atol=1e-4, rtol=1e-4)
@@ -308,7 +308,7 @@ def test_mamba2_forward_state_continues_in_decode():
     prompt had gone through the decode step token by token (fp32, 1e-4)."""
     _, cfg, _, p = one_layer(7)
     x = torch.tensor(np.random.default_rng(8).standard_normal((1, 40, cfg.d_model), np.float32))
-    y_full, (cs, ss) = ssm.mamba2_forward(p, cfg, x, impl="kernel")
+    y_full, (cs, ss) = ssm.mamba2_forward(p, cfg, x, scan="kernel")
     conv = torch.zeros_like(cs)
     state = torch.zeros_like(ss)
     ys = [ssm.mamba2_decode(p, cfg, x[:, t:t + 1], conv, state)[0] for t in range(40)]
