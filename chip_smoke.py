@@ -154,9 +154,26 @@ Phases, one JSON object a line:
            same checks and numbers as train_audio (K1 12, K2a 6, K2b 6 a
            step), and the naive scan's share of the step: its device time on
            one layer's shape, forward and forward + backward, times 38 layers
+  train_ckpt  tinyllama-1.1b at full size through launch.train's runner
+           (make_runner, as its main builds it: TRAIN_MSM, remat "full",
+           impl="kernel", 4 x 1024 batches from the data pipeline). Run A: 4
+           steps, no checkpoint. Run B: 4 steps with --ckpt-dir (a directory
+           under build/, removed at the end; at least 3 checkpoints of free
+           disk required) and --save-every 2, its segment failing once after
+           step 3, before that step's save: one restart, resumed from step 2
+           (K1 2 x 22, K2a 22, K2b 22 a step: A 4 steps, B 5). B's resumed
+           losses, final parameters and optimizer state equal A's to the bit;
+           `restore` of step 4 equals B's in-memory state; the restored
+           parameters served (prefill step on 4 x 512, K1 22; `generate` 16
+           steps, K3 22 x 527), the prefill logits equal to the bit to those
+           of A's parameters (K1 22) and close to the naive path's. Reports
+           the checkpoint's bytes, each save's hold on the loop
+           (wait + snapshot), background write seconds and GB/s, restore
+           seconds and GB/s, the doubled last save's cost, free disk before
+           the phase, peak device memory across the restart
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
-           serve_audio, train_audio, train_hybrid),
+           serve_audio, train_audio, train_hybrid, train_ckpt),
            error, time, plain time, bound and the library call's time; K1
            and K2 also at S=4096, D=128, MLA's training shape and the family
            paths' four shapes, K1 also at the two D=128 models' and the MLA
@@ -257,6 +274,17 @@ AUDIO_LOGIT_REL_NORM, AUDIO_BLIND_MARGIN = 5e-2, 4
 # are held at 4e-2 against each other, and the kernel path must be no
 # further from the fp32 oracle than the naive path is (within 10 %)
 TRAIN_GRAD_RTOL, TRAIN_LOSS_ATOL, TRAIN_VS_ORACLE = 4e-2, 1e-2, 1.1
+# train_ckpt: launch.train's runner on tinyllama-1.1b at full size, 4 steps,
+# a checkpoint every 2 into a directory inside the checkout (ignored by git,
+# removed at the end); run B's segment fails once right after its third step,
+# before that step's save, so it resumes from step 2. Each checkpoint holds
+# the bf16 parameters and fp32 master weights, mu and nu (15.40 GB); at the
+# doubled last save, steps 2 and 4 and step 4's second copy, not yet renamed
+# into place, are on the disk at once, so 3 checkpoints and CKPT_DISK_MARGIN
+# must be free
+CKPT_DIR = ROOT / "build" / "train_ckpt"
+CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AFTER = 4, 2, 3
+CKPT_DISK_MARGIN = 2 << 30
 
 
 def emit(obj) -> None:
@@ -2382,6 +2410,230 @@ def phase_train_hybrid(cfg) -> dict:
     return launches
 
 
+def flat_leaves(tree) -> dict:
+    """A tree's leaves by their checkpoint name (``a/b``), detached."""
+    from repro_torch.checkpoint.ckpt import _flatten
+
+    return {k: v.detach() for k, v in _flatten(tree).items()}
+
+
+def same_bits(name: str, got: dict, want: dict) -> None:
+    """Two flat trees with the same names, dtypes, shapes and values to the
+    bit (``want`` may be on the host)."""
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: leaf names differ: {sorted(set(got) ^ set(want))}")
+    for k, g in got.items():
+        w = want[k].to(g.device)
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{name}: leaf {k} differs ({g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)})")
+
+
+def phase_train_ckpt(cfg) -> dict:
+    """tinyllama-1.1b at full size through ``launch.train``'s runner
+    (``make_runner``, as ``main`` builds it: bf16 parameters, fp32 master
+    weights and moments, remat "full", impl="kernel", 4 x 1024 batches from
+    the trainer's data pipeline). Run A: CKPT_STEPS steps, no checkpoint.
+    Run B: the same with a checkpoint every CKPT_SAVE_EVERY steps, its
+    segment failing once after step CKPT_FAIL_AFTER before that step's
+    save; the runner restarts from step 2. B's resumed losses, final
+    parameters and optimizer state must equal A's to the bit, and
+    ``restore`` of step 4 B's in-memory state. Then the restored parameters
+    are served (prefill step on 4 x 512, ``generate`` for 16 steps), the
+    prefill logits equal to the bit to those of A's parameters and within
+    LOGIT_ATOL/LOGIT_RTOL of the naive path's. The row reports the
+    checkpoint's bytes, the seconds each save held the loop, the background
+    writes' and the restore's seconds and GB/s, the doubled last save's
+    cost, the disk's free bytes and peak device memory across the restart."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import _unflatten, restore
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.base import count_params
+    from repro_torch.serve.step import make_prefill_step
+
+    t_start = time.perf_counter()
+    free_memory()
+    cuda = torch.device("cuda")
+    train_counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    layers = cfg.n_layers
+    per_step = {"flash_attention": 2 * layers, "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers}
+    resumed_from = CKPT_FAIL_AFTER // CKPT_SAVE_EVERY * CKPT_SAVE_EVERY
+    n_params = count_params(LanguageModel(cfg).specs())
+    ckpt_bytes = n_params * (2 + 3 * 4) + 4          # bf16 params, fp32 master/mu/nu, step
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    free_before = shutil.disk_usage(CKPT_DIR).free
+    need = 3 * ckpt_bytes + CKPT_DISK_MARGIN
+    if free_before < need:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        raise AssertionError(f"train_ckpt: {free_before} bytes free at {CKPT_DIR}, {need} "
+                             f"needed (3 checkpoints of {ckpt_bytes} bytes + "
+                             f"{CKPT_DISK_MARGIN})")
+
+    def run(ckpt_dir=None, fail_after=None):
+        argv = ["--arch", cfg.name, "--steps", str(CKPT_STEPS), "--global-batch",
+                str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
+        if ckpt_dir is not None:
+            argv += ["--ckpt-dir", str(ckpt_dir), "--save-every", str(CKPT_SAVE_EVERY)]
+        runner = ttrain.make_runner(ttrain.parse_args(argv), cuda)
+        save, failed, held = runner.maybe_save, [], []
+
+        def maybe_save(st, force=False):
+            if st.step == fail_after and not force and not failed:
+                failed.append(st.step)
+                raise RuntimeError(f"injected failure after step {st.step}, before its save")
+            t0 = time.perf_counter()
+            save(st, force)
+            if runner.ckpt is not None and len(runner.ckpt.saves) > len(held):
+                held.append(time.perf_counter() - t0)     # the wait and the snapshot
+
+        runner.maybe_save = maybe_save
+        torch.cuda.synchronize()
+        for c in train_counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        st = runner.run(CKPT_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return st, runner, {c.__name__: c.launches for c in train_counters}, held, seconds
+
+    try:
+        # run A: uninterrupted, its final state kept in host memory
+        st_a, _, launches_a, _, seconds_a = run()
+        losses_a = list(st_a.final_losses)
+        params_a = {k: v.to("cpu", copy=True) for k, v in flat_leaves(st_a.params).items()}
+        opt_a = {k: v.to("cpu", copy=True) for k, v in flat_leaves(st_a.opt_state).items()}
+        del st_a
+        free_memory()
+        # run B: fails once, restarts from its checkpoint
+        torch.cuda.reset_peak_memory_stats()
+        st_b, runner_b, launches_b, held_b, seconds_b = run(CKPT_DIR, CKPT_FAIL_AFTER)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        steps_b = CKPT_STEPS + CKPT_FAIL_AFTER - resumed_from
+        for name, got, steps in (("run A", launches_a, CKPT_STEPS), ("run B", launches_b, steps_b)):
+            want = {k: v * steps for k, v in per_step.items()}
+            if got != want:
+                raise AssertionError(f"train_ckpt: {name}'s launch counts {got}, expected {want}")
+        if st_b.restarts != 1 or st_b.step != CKPT_STEPS:
+            raise AssertionError(f"train_ckpt: run B ended at step {st_b.step} after "
+                                 f"{st_b.restarts} restarts, expected {CKPT_STEPS} after 1")
+        if st_b.final_losses != losses_a[resumed_from:]:
+            raise AssertionError(f"train_ckpt: resumed losses {st_b.final_losses} differ from "
+                                 f"the uninterrupted run's {losses_a[resumed_from:]}")
+        if not all(math.isfinite(x) for x in losses_a):
+            raise AssertionError(f"train_ckpt: losses {losses_a}")
+        state_b = {"params": flat_leaves(st_b.params), "opt": flat_leaves(st_b.opt_state)}
+        same_bits("train_ckpt: run B's parameters against run A's", state_b["params"], params_a)
+        same_bits("train_ckpt: run B's optimizer state against run A's", state_b["opt"], opt_a)
+        step_dir = CKPT_DIR / f"step_{CKPT_STEPS:09d}"
+        disk_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        kept = sorted(p.name for p in CKPT_DIR.iterdir() if p.name.startswith("step_"))
+        # restore the last checkpoint onto the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, tree, extra = restore(str(CKPT_DIR), device=cuda)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != CKPT_STEPS or extra.get("step") != CKPT_STEPS:
+            raise AssertionError(f"train_ckpt: restored step {step}, extra {extra}")
+        same_bits("train_ckpt: the restored step-4 parameters against run B's",
+                  flat_leaves(tree["params"]), state_b["params"])
+        same_bits("train_ckpt: the restored step-4 optimizer state against run B's",
+                  flat_leaves(tree["opt"]), state_b["opt"])
+        del st_b, state_b, tree["opt"]
+        free_memory()
+
+        # serve once from the checkpoint. B's state equals A's and the restored
+        # tree equals B's, to the bit, so the same drive from A's parameters
+        # would repeat it; A's parameters in memory take the prefill step, and
+        # the naive path on the restored weights holds the kernel path's logits
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device=cuda,
+                                generator=torch.Generator(device=cuda).manual_seed(2))
+        batch = {"tokens": prompts}
+        drive_steps = PROMPT_LEN + FAMILY_GEN_STEPS - 1
+        want = {"prefill": {"flash_attention": layers, "flash_decode": 0},
+                "generate": {"flash_attention": 0, "flash_decode": layers * drive_steps}}
+        model = LanguageModel(cfg, impl="kernel").load_params(tree.pop("params"))
+        served = drive(model, prompts, {"prefill": batch}, (flash_attention, flash_decode),
+                       FAMILY_GEN_STEPS)
+        if served["launches"] != want:
+            raise AssertionError(f"train_ckpt: serving from the checkpoint: launch counts "
+                                 f"{served['launches']}, expected {want}")
+        logits = served["logits"]
+        toks = served["tokens"]
+        if (toks.shape != (BATCH, FAMILY_GEN_STEPS) or int(toks.min()) < 0
+                or int(toks.max()) >= cfg.vocab_size):
+            raise AssertionError(f"train_ckpt: bad tokens: shape {tuple(toks.shape)}")
+        naive = LanguageModel(cfg, impl="naive")
+        naive.params = model.params                  # the same weights, not a copy
+        errs = {"engine_vs_prefill": logits_agree("train_ckpt: engine vs prefill step",
+                                                  logits["engine"], logits["prefill"]),
+                "prefill_kernel_vs_naive": logits_agree(
+                    "train_ckpt: prefill step, kernel vs naive", logits["prefill"],
+                    make_prefill_step(naive)(batch)[:, 0].float())}
+        del served["engine"], model, naive
+        free_memory()
+        memory = LanguageModel(cfg, impl="kernel").load_params(
+            _unflatten({k: v.to(cuda) for k, v in params_a.items()}))
+        flash_attention.launches = 0
+        memory_logits = make_prefill_step(memory)(batch)[:, 0].float()
+        memory_launches = {"flash_attention": flash_attention.launches}
+        if memory_launches["flash_attention"] != layers:
+            raise AssertionError(f"train_ckpt: prefill from memory launched K1 "
+                                 f"{memory_launches['flash_attention']} times, expected {layers}")
+        if not torch.equal(memory_logits, logits["prefill"]):
+            raise AssertionError("train_ckpt: prefill logits from the checkpoint differ from "
+                                 "those from run A's parameters")
+        del memory
+        free_memory()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    saves = [dict(r, held_loop_s=held, write_gb_per_s=r["bytes"] / r["write_s"] / 1e9)
+             for r, held in zip(runner_b.ckpt.saves, held_b)]
+    want_saves = [resumed_from, CKPT_STEPS, CKPT_STEPS]     # the last one doubled
+    if [r["step"] for r in saves] != want_saves or any(r["bytes"] != ckpt_bytes for r in saves):
+        raise AssertionError(f"train_ckpt: saves {saves}: expected steps {want_saves} of "
+                             f"{ckpt_bytes} bytes")
+    launches = {k: launches_a[k] + launches_b[k] for k in per_step}
+    launches["flash_decode"] = served["launches"]["generate"]["flash_decode"]
+    launches["flash_attention"] += (served["launches"]["prefill"]["flash_attention"]
+                                    + memory_launches["flash_attention"])
+    row = {"phase": "train_ckpt", "arch": cfg.name, "n_layers": layers, "n_params": n_params,
+           "dtype": "bfloat16", "impl": "kernel", "remat": "full",
+           "recipe": {"source": "TRAIN_MSM (src/repro/core/msm.py)", "master_weights": True,
+                      "moment_dtype": "float32"},
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": CKPT_STEPS,
+           "save_every": CKPT_SAVE_EVERY, "fail_after_step": CKPT_FAIL_AFTER,
+           "resumed_from_step": resumed_from, "losses": losses_a, "restarts": 1,
+           "resumed_losses_equal": True, "state_bit_identical": True,
+           "restored_bit_identical": True, "prefill_from_memory_bit_identical": True,
+           "logit_max_abs_diff": errs,
+           "launches_per_step": per_step,
+           "launches": {"run_a": launches_a, "run_b": launches_b,
+                        "serve_checkpoint": served["launches"],
+                        "prefill_memory": memory_launches},
+           "run_s": {"a": seconds_a, "b": seconds_b},
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_disk_bytes": disk_bytes,
+           "kept": kept, "saves": saves,
+           # what the second save of the last step adds: its snapshot and its write
+           # (its hold on the loop also waits for the first one's write)
+           "doubled_last_save_s": saves[2]["snapshot_s"] + saves[2]["write_s"],
+           "restore_s": restore_s, "restore_gb_per_s": ckpt_bytes / restore_s / 1e9,
+           "disk_free_bytes_before": free_before, "disk_needed_bytes": need,
+           "max_memory_allocated_bytes_run_b": peak_bytes,
+           "phase_s": time.perf_counter() - t_start}
+    emit(row)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2449,6 +2701,7 @@ def main() -> int:
     audio_launches = phase_serve_audio(audio)
     train_audio_launches = phase_train_audio(audio)
     train_hybrid_launches = phase_train_hybrid(hybrid)
+    train_ckpt_launches = phase_train_ckpt(cfg)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -2479,7 +2732,8 @@ def main() -> int:
                 "train_mla": train_mla_launches.get(name, 0),
                 "serve_audio": audio_launches.get(name, 0),
                 "train_audio": train_audio_launches.get(name, 0),
-                "train_hybrid": train_hybrid_launches.get(name, 0)}
+                "train_hybrid": train_hybrid_launches.get(name, 0),
+                "train_ckpt": train_ckpt_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

@@ -1,10 +1,13 @@
-"""Single-GPU training entry point.
+"""Single-GPU training entry point: the reference's elastic, checkpointing
+trainer.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
-        --steps 20 --global-batch 4 --seq-len 1024
+        --steps 20 --global-batch 4 --seq-len 1024 [--ckpt-dir DIR --save-every 50]
 
 Config -> model -> train step (loss, gradients through the kernels, AdamW)
--> deterministic data pipeline. Runs on the card; ``--device cpu`` runs the
+-> deterministic data pipeline -> step watchdog -> async checkpointing ->
+elastic restart (``ft.ElasticRunner``), as the reference's
+``launch/train.py`` wires them. Runs on the card; ``--device cpu`` runs the
 same path with the kernels' plain versions (for the smoke configs,
 ``--arch tinyllama-1.1b-smoke``). Without ``--remat`` the recipe is the
 reference's training policy: per-block full remat, fp32 moments, fp32 master
@@ -13,18 +16,26 @@ naive chunked scan (``scan="naive"``): K5 has no backward, and the reference
 trains through its jnp scan. The data pipeline makes tokens only, so the
 encoder-decoder (``whisper-base``), whose batch needs ``frames``, trains
 through ``train.make_train_step`` on a batch its caller builds.
+
+``--ckpt-dir`` has no default: without it nothing is written or read and a
+failed step raises. With it, the trainer restores the latest checkpoint
+there, saves every ``--save-every`` steps and at the end, and restarts a
+failed segment from the last checkpoint. A resumed run equals an
+uninterrupted one to the bit: the loader restarts at the restored step and
+each step's generator is seeded by its step.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
 import repro_torch.configs as configs
 from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import restore
 from repro_torch.data.pipeline import DataConfig, DataLoader
+from repro_torch.ft import ElasticRunner, RunState, StepWatchdog
 from repro_torch.models import LanguageModel
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.lm import REMATS
@@ -33,14 +44,26 @@ from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 DEFAULT_REMAT = "full"      # the reference's training policy (TRAIN_MSM)
 
 
-def build(args, device):
+def build(args, device, restore_step=None):
+    """The model, its config, the optimizer state, the step function and
+    the step to start from: a fresh init from ``args.seed``, or the
+    parameters and optimizer state of ``restore_step`` under
+    ``args.ckpt_dir``."""
     cfg = configs.get(args.arch)
     model = LanguageModel(cfg, impl=args.impl, remat=args.remat or DEFAULT_REMAT, scan="naive")
-    model.init(torch.Generator(device=device).manual_seed(args.seed), device=device)
     opt_cfg = OptimConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
-    opt_state = init_opt_state(model.params, opt_cfg)
+    if restore_step is not None:
+        _, tree, extra = restore(args.ckpt_dir, restore_step, device=device)
+        model.load_params(tree["params"])
+        opt_state = tree["opt"]      # step, mu, nu[, master]: the keys init_opt_state makes
+        start = int(extra.get("step", restore_step))
+        print(f"[train] restored step {start} from {args.ckpt_dir}")
+    else:
+        model.init(torch.Generator(device=device).manual_seed(args.seed), device=device)
+        opt_state = init_opt_state(model.params, opt_cfg)
+        start = 0
     step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
-    return model, cfg, opt_state, step_fn
+    return model, cfg, opt_state, step_fn, start
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -55,7 +78,7 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b-smoke",
                     help="a name of configs.ARCHS, with '-smoke' for its CPU-sized variant")
@@ -71,37 +94,72 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (an error without one); "
                          "'cpu' runs the kernels' plain versions")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory: restore its latest step, save into it, and "
+                         "restart a failed segment from it (default: none)")
+    ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def make_runner(args: argparse.Namespace, device: torch.device) -> ElasticRunner:
+    """The elastic runner ``main`` runs: ``runner.run(args.steps)`` returns
+    the final ``RunState``, with ``final_losses`` (the last segment's)."""
     if configs.get(args.arch).family == "audio":
         raise SystemExit(f"{args.arch}: the data pipeline makes no 'frames' for the encoder, "
                          "as the reference's makes none; train it through "
                          "train.make_train_step on a batch that holds them")
+
+    def mesh_factory():
+        return device
+
+    def build_state(mesh, restore_step):
+        model, cfg, opt_state, step_fn, start = build(args, mesh, restore_step)
+        st = RunState(params=model.params, opt_state=opt_state, step=start, mesh=mesh)
+        st.model, st.cfg, st.step_fn = model, cfg, step_fn
+        return st
+
+    def train_segment(runner: ElasticRunner, st: RunState, max_steps: int):
+        data = DataLoader(DataConfig(st.cfg.vocab_size, args.seq_len, args.global_batch,
+                                     seed=args.seed), start_step=st.step)
+        losses = []
+        try:
+            with StepWatchdog(deadline_s=300.0) as wd:
+                for step, batch in data:
+                    if step >= max_steps:
+                        break
+                    wd.check()
+                    wd.step_started()
+                    batch = to_device(batch, device)
+                    rng = torch.Generator(device=device).manual_seed(step)
+                    _, st.opt_state, metrics = st.step_fn(st.params, st.opt_state, batch, rng)
+                    loss = float(metrics["loss"])           # waits for the step
+                    dt = wd.step_finished()
+                    st.step = step + 1
+                    runner.maybe_save(st)
+                    losses.append(loss)
+                    if step % args.log_every == 0:
+                        print(f"step {step:5d} loss {loss:8.4f} "
+                              f"gnorm {float(metrics['grad_norm']):7.3f} "
+                              f"dt {dt*1e3:7.1f}ms", flush=True)
+        finally:
+            data.close()
+        runner.maybe_save(st, force=True)
+        st.final_losses = losses
+        return st
+
+    return ElasticRunner(args.ckpt_dir, mesh_factory, build_state, train_segment,
+                         save_every=args.save_every)
+
+
+def main(argv=None) -> RunState:
+    args = parse_args(argv)
     device = resolve_device(args.device)
-    model, cfg, opt_state, step_fn = build(args, device)
-    data = DataLoader(DataConfig(cfg.vocab_size, args.seq_len, args.global_batch,
-                                 seed=args.seed))
-    losses = []
-    try:
-        for step, batch in data:
-            if step >= args.steps:
-                break
-            t0 = time.perf_counter()
-            batch = to_device(batch, device)
-            rng = torch.Generator(device=device).manual_seed(step)
-            _, opt_state, metrics = step_fn(model.params, opt_state, batch, rng)
-            loss = float(metrics["loss"])           # waits for the step
-            dt = time.perf_counter() - t0
-            losses.append(loss)
-            if step % args.log_every == 0:
-                print(f"step {step:5d} loss {loss:8.4f} "
-                      f"gnorm {float(metrics['grad_norm']):7.3f} "
-                      f"dt {dt*1e3:7.1f}ms", flush=True)
-    finally:
-        data.close()
-    print(f"done at step {len(losses)}; final loss {np.mean(losses[-10:]):.4f} on {device}")
-    return losses
+    st = make_runner(args, device).run(args.steps)
+    losses = st.final_losses          # none where a restored run was already at --steps
+    tail = f"final loss {np.mean(losses[-10:]):.4f}" if losses else "no step left to run"
+    print(f"done at step {st.step}; {tail} on {device}")
+    return st
 
 
 if __name__ == "__main__":

@@ -42,7 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.attention import IMPLS, cross_decode, gqa_decode, mla_decode
-from repro_torch.models.base import Specs, axes_tree, init_params, stack_specs
+from repro_torch.models.base import P, Specs, axes_tree, init_params, stack_specs
 from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_specs,
                                        ffn, logits_for_tokens, rmsnorm, rmsnorm_specs)
 from repro_torch.models.moe import moe_ffn
@@ -82,9 +82,30 @@ def _layer_groups(cfg: ModelConfig) -> list[tuple[str, int, int]]:
     return ([("dense_layers", 0, kd)] if kd else []) + [("layers", kd, cfg.n_layers - kd)]
 
 
+def _check_tree(tree, specs: Specs, prefix: str = "") -> None:
+    """Raise ``ValueError`` naming the first leaf (in sorted-key order) that
+    ``specs`` has and ``tree`` lacks, that ``tree`` has and ``specs`` lacks,
+    or whose shape is not its spec's."""
+    for k in sorted(set(specs) | set(tree.keys())):
+        path = prefix + k
+        if k not in tree:
+            raise ValueError(f"parameter {path!r} is missing")
+        if k not in specs:
+            raise ValueError(f"parameter {path!r} is not one of this model's")
+        spec, v = specs[k], tree[k]
+        if isinstance(spec, P):
+            if hasattr(v, "keys") or tuple(v.shape) != spec.shape:
+                shape = "a subtree" if hasattr(v, "keys") else f"shape {tuple(v.shape)}"
+                raise ValueError(f"parameter {path!r} has {shape}, expected shape {spec.shape}")
+        elif not hasattr(v, "keys"):
+            raise ValueError(f"parameter {path!r} is a leaf, expected a subtree")
+        else:
+            _check_tree(v, spec, path + ".")
+
+
 def _to_module(tree: dict) -> nn.ParameterDict:
     return nn.ParameterDict({
-        k: (_to_module(v) if isinstance(v, dict)
+        k: (_to_module(v) if hasattr(v, "keys")
             else nn.Parameter(v, requires_grad=v.is_floating_point()))
         for k, v in tree.items()})
 
@@ -151,7 +172,11 @@ class LanguageModel(nn.Module):
 
     def load_params(self, tree: dict):
         """Adopt a nested dict of tensors with the keys and shapes of
-        ``specs()`` (as ``convert.params_from_numpy`` returns it)."""
+        ``specs()`` (as ``convert.params_from_numpy`` and
+        ``checkpoint.ckpt.restore`` return it). Raises ``ValueError`` naming
+        the first missing, extra or misshapen leaf, so that another
+        architecture's parameters fail here and not at a product."""
+        _check_tree(tree, self.specs())
         self.params = _to_module(tree)
         return self
 

@@ -233,8 +233,10 @@ def test_train_main_runs_mla_on_the_cpu(capsys):
     """The entry point for deepseek-v2-236b-smoke at S=320, past the
     shortcut: MLA's gradient through the autograd Function (the plain
     versions on the CPU), losses finite."""
-    losses = ttrain.main(["--arch", SMOKE, "--steps", "2", "--global-batch", "2",
-                          "--seq-len", "320", "--log-every", "1", "--device", "cpu"])
+    st = ttrain.main(["--arch", SMOKE, "--steps", "2", "--global-batch", "2",
+                      "--seq-len", "320", "--log-every", "1", "--device", "cpu"])
+    losses = st.final_losses
+    assert st.step == 2 and st.restarts == 0
     assert len(losses) == 2 and all(np.isfinite(losses))
     out = capsys.readouterr().out
     assert sum(line.startswith("step ") for line in out.splitlines()) == 2

@@ -13,7 +13,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_SOURCES = sorted(PORT.rglob("*.py"))
 SOURCES = PORT_SOURCES + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "msgpack", "ml_dtypes"}
 
 
 def imported_roots(path):
@@ -42,7 +42,9 @@ def test_every_module_is_checked():
                    "models/moe.py", "configs/qwen3_moe_235b_a22b.py", "configs/internvl2_26b.py",
                    "configs/deepseek_v2_236b.py",
                    "serve/step.py", "launch/serve.py", "train/__init__.py", "train/optim.py",
-                   "train/step.py", "data/pipeline.py", "launch/train.py"):
+                   "train/step.py", "data/pipeline.py", "launch/train.py",
+                   "checkpoint/_msgpack.py", "checkpoint/ckpt.py", "ft/watchdog.py",
+                   "ft/elastic.py"):
         assert needed in names
     for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
                "ssd_scan.cu", "fused_ffn.cu", "mma_tile.cuh"):
@@ -53,7 +55,8 @@ def test_importing_the_port_leaves_jax_out_of_the_process():
     code = ("import sys, importlib, pkgutil, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes')]\n"
             "assert not bad, bad\n"
             "print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -97,6 +100,24 @@ def test_entry_points_raise_without_a_card():
         train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "zamba2-1.2b-smoke", "--fused-ffn"])
+
+
+def test_checkpoint_entry_points_raise_without_a_card(tmp_path):
+    """Restoring and training with a checkpoint directory ask for the card
+    too, and touch nothing there before they do."""
+    needs_no_card()
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.launch import train
+
+    save(str(tmp_path), 1, {"w": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore(str(tmp_path), device="cuda")
+    ckpt = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--ckpt-dir", str(ckpt)])
+    assert not ckpt.exists()
 
 
 def test_cpu_tensors_launch_no_kernel_and_wrappers_refuse_them():

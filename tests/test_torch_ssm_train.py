@@ -186,8 +186,10 @@ def test_train_main_runs_on_the_cpu(name, capsys):
     """The entry point builds the model with scan="naive": past the
     shortcut at --seq-len 320, K1/K2's plain versions in the hybrid's shared
     block, losses finite."""
-    losses = ttrain.main(["--arch", name, "--steps", "2", "--global-batch", "2",
-                          "--seq-len", "320", "--log-every", "1", "--device", "cpu"])
+    st = ttrain.main(["--arch", name, "--steps", "2", "--global-batch", "2",
+                      "--seq-len", "320", "--log-every", "1", "--device", "cpu"])
+    losses = st.final_losses
+    assert st.step == 2 and st.restarts == 0
     assert len(losses) == 2 and all(np.isfinite(losses))
     out = capsys.readouterr().out
     assert sum(line.startswith("step ") for line in out.splitlines()) == 2

@@ -192,8 +192,10 @@ def test_serve_and_train_main_run_on_the_cpu(capsys):
     toks = tserve.main(["--device", "cpu", "--arch", SMOKE, "--batch", "2", "--prompt-len", "6",
                         "--gen", "4", "--max-len", "16"])
     assert tuple(toks.shape) == (2, 4)
-    losses = ttrain.main(["--arch", SMOKE, "--steps", "2", "--global-batch", "2",
-                          "--seq-len", "32", "--log-every", "1", "--device", "cpu"])
+    st = ttrain.main(["--arch", SMOKE, "--steps", "2", "--global-batch", "2",
+                      "--seq-len", "32", "--log-every", "1", "--device", "cpu"])
+    losses = st.final_losses
+    assert st.step == 2 and st.restarts == 0
     assert len(losses) == 2 and all(np.isfinite(losses))
     out = capsys.readouterr().out
     assert "tok/s" in out and "on cpu" in out
