@@ -171,9 +171,18 @@ Phases, one JSON object a line:
            (wait + snapshot), background write seconds and GB/s, restore
            seconds and GB/s, the doubled last save's cost, free disk before
            the phase, peak device memory across the restart
+  train_mesh  tinyllama-1.1b at full size through launch.train's runner,
+           4 steps without a mesh (A) and 4 with --mesh-model 1 (B): a (1, 1)
+           NCCL mesh from make_host_mesh() on the one card, parameters,
+           optimizer state and batches DTensors in the reference's
+           placements. B's losses, final parameters and optimizer state equal
+           A's to the bit; K1 2 x 22, K2a 22, K2b 22 a step in each run; B's
+           final parameters take the first batch's loss through the mesh at
+           impl="kernel" and impl="naive"; each run's host step times and one
+           more profiled step, and the differences B - A
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
-           serve_audio, train_audio, train_hybrid, train_ckpt),
+           serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh),
            error, time, plain time, bound and the library call's time; K1
            and K2 also at S=4096, D=128, MLA's training shape and the family
            paths' four shapes, K1 also at the two D=128 models' and the MLA
@@ -195,6 +204,7 @@ import io
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -285,6 +295,9 @@ TRAIN_GRAD_RTOL, TRAIN_LOSS_ATOL, TRAIN_VS_ORACLE = 4e-2, 1e-2, 1.1
 CKPT_DIR = ROOT / "build" / "train_ckpt"
 CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AFTER = 4, 2, 3
 CKPT_DISK_MARGIN = 2 << 30
+# train_mesh: launch.train's runner on tinyllama-1.1b at full size, without a
+# mesh and through a (1, 1) mesh on the card, MESH_STEPS steps each
+MESH_STEPS = 4
 
 
 def emit(obj) -> None:
@@ -2634,6 +2647,164 @@ def phase_train_ckpt(cfg) -> dict:
     return launches
 
 
+def phase_train_mesh(cfg) -> dict:
+    """tinyllama-1.1b at full size through ``launch.train``'s runner twice,
+    as ``main`` builds it (TRAIN_MSM: bf16 parameters, fp32 master weights
+    and moments; remat "full", impl="kernel", 4 x 1024 batches from the
+    data pipeline), MESH_STEPS steps each: run A without a mesh, run B with
+    ``--mesh-model 1``, through ``make_host_mesh()`` on the one card, a
+    (1, 1) NCCL mesh with parameters, optimizer state and batches as
+    DTensors in the reference's placements. B's losses, final parameters
+    and optimizer state must equal A's to the bit, and B must launch K1,
+    K2a and K2b 2 x 22, 22 and 22 times a step. Then B's final parameters
+    take the loss of the first batch through the mesh at impl="kernel" and
+    impl="naive" (within TRAIN_LOSS_ATOL). The row reports each run's host
+    step times (around a synchronize), one more step of each under
+    torch.profiler (its kernel-time sum), and the differences B - A."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.launch import train as ttrain
+
+    t_start = time.perf_counter()
+    free_memory()
+    cuda = torch.device("cuda")
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    layers = cfg.n_layers
+    per_step = {"flash_attention": 2 * layers, "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers}
+    first = _batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0), 0,
+                      slice(0, TRAIN_BATCH))
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    def run(mesh_model):
+        argv = ["--arch", cfg.name, "--steps", str(MESH_STEPS), "--global-batch",
+                str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
+        argv += [] if mesh_model is None else ["--mesh-model", str(mesh_model)]
+        runner = ttrain.make_runner(ttrain.parse_args(argv), cuda)
+        build, make_mesh, step_ms, mesh_s = runner.build_state, runner.mesh_factory, [], []
+
+        def mesh_factory():
+            t0 = time.perf_counter()
+            mesh = make_mesh()
+            mesh_s.append(time.perf_counter() - t0)
+            return mesh
+
+        def build_state(mesh, restore_step):
+            st = build(mesh, restore_step)
+            step_fn = st.step_fn
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(*args)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            st.step_fn, st.untimed_step_fn = timed, step_fn
+            return st
+
+        runner.mesh_factory, runner.build_state = mesh_factory, build_state
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        st = runner.run(MESH_STEPS)
+        torch.cuda.synchronize()
+        batch = ttrain.to_device(first, cuda, st.mesh if mesh_model is not None else None)
+        return st, counts(), step_ms, batch, (mesh_s[0] if mesh_model else None)
+
+    def profile(st, batch):
+        """One more step, of the run's final state, under torch.profiler."""
+        return profile_step(lambda: st.untimed_step_fn(st.params, st.opt_state, batch, None))
+
+    # run A: no mesh, its final state kept in host memory
+    st_a, launches_a, ms_a, batch_a, _ = run(None)
+    losses_a = list(st_a.final_losses)
+    state_a = {k: v.to("cpu", copy=True)
+               for k, v in flat_leaves({"params": st_a.params, "opt": st_a.opt_state}).items()}
+    profile_a = profile(st_a, batch_a)
+    del st_a, batch_a
+    free_memory()
+    # run B: the same steps through a (1, 1) mesh
+    torch.cuda.reset_peak_memory_stats()
+    st_b, launches_b, ms_b, batch_b, mesh_s = run(1)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    mesh = st_b.mesh
+    want = {k: v * MESH_STEPS for k, v in per_step.items()}
+    if launches_b != want or launches_a != want:
+        raise AssertionError(f"train_mesh: launch counts {launches_b} (mesh), {launches_a} "
+                             f"(no mesh), expected {want} each")
+    if st_b.final_losses != losses_a or not all(math.isfinite(x) for x in losses_a):
+        raise AssertionError(f"train_mesh: losses through the mesh {st_b.final_losses}, "
+                             f"without {losses_a}")
+    leaves_b = flat_leaves({"params": st_b.params, "opt": st_b.opt_state})
+    sharded = [k for k, v in leaves_b.items() if isinstance(v, DTensor)]
+    if len(sharded) != len(leaves_b):
+        raise AssertionError(f"train_mesh: leaves not placed on the mesh: "
+                             f"{sorted(set(leaves_b) - set(sharded))}")
+    same_bits("train_mesh: the mesh run's state against the run without a mesh",
+              {k: v.full_tensor() for k, v in leaves_b.items()}, state_a)
+    del state_a
+    profile_b = profile(st_b, batch_b)
+    # the loss of the first batch through the mesh, kernel path and naive path
+    model = st_b.model
+    losses = {}
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        for impl in ("kernel", "naive"):
+            model.impl = impl
+            losses[impl] = float(model.loss(batch_b))
+            losses[f"{impl}_launches"] = counts()
+            for c in counters:
+                c.launches = 0
+    model.impl = "kernel"
+    if losses["naive_launches"] != {k: 0 for k in per_step} or (
+            losses["kernel_launches"]["flash_attention"] != layers):
+        raise AssertionError(f"train_mesh: loss launches {losses}")
+    if abs(losses["kernel"] - losses["naive"]) > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"train_mesh: loss through the mesh, kernel {losses['kernel']} "
+                             f"vs naive {losses['naive']}")
+    row = {"phase": "train_mesh", "arch": cfg.name, "n_layers": layers, "dtype": "bfloat16",
+           "impl": "kernel", "remat": "full",
+           "recipe": {"source": "TRAIN_MSM (src/repro/core/msm.py)", "master_weights": True,
+                      "moment_dtype": "float32"},
+           "mesh": {"shape": list(mesh.shape), "dim_names": list(mesh.mesh_dim_names),
+                    "backend": dist.get_backend(), "make_host_mesh_s": mesh_s,
+                    "dtensor_leaves": len(sharded),
+                    "wq_placements": [str(p) for p in
+                                      st_b.params["layers"]["attn"]["wq"].placements]},
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": MESH_STEPS,
+           "losses": losses_a, "losses_bit_identical": True, "state_bit_identical": True,
+           "loss_kernel_vs_naive": {"kernel": losses["kernel"], "naive": losses["naive"],
+                                    "abs_diff": abs(losses["kernel"] - losses["naive"])},
+           "launches_per_step": per_step, "launches": launches_b,
+           "launches_no_mesh": launches_a,
+           "no_mesh": {"step_ms_host": ms_a, "step_ms_host_median": statistics.median(ms_a[1:]),
+                       "step_ms_device": profile_a["device_ms"], "profile": profile_a},
+           "mesh_run": {"step_ms_host": ms_b, "step_ms_host_median": statistics.median(ms_b[1:]),
+                        "step_ms_device": profile_b["device_ms"], "profile": profile_b},
+           "step_ms_device_from": "torch.profiler kernel-time sum of one more step",
+           "max_memory_allocated_bytes_mesh_run": peak_bytes}
+    row["mesh_minus_no_mesh_ms"] = {
+        "host_median": row["mesh_run"]["step_ms_host_median"]
+        - row["no_mesh"]["step_ms_host_median"],
+        "device": profile_b["device_ms"] - profile_a["device_ms"]}
+    del st_b, model, batch_b, leaves_b
+    dist.destroy_process_group()
+    free_memory()
+    row["phase_s"] = time.perf_counter() - t_start
+    emit(row)
+    return launches_b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2702,6 +2873,7 @@ def main() -> int:
     train_audio_launches = phase_train_audio(audio)
     train_hybrid_launches = phase_train_hybrid(hybrid)
     train_ckpt_launches = phase_train_ckpt(cfg)
+    train_mesh_launches = phase_train_mesh(cfg)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -2733,7 +2905,8 @@ def main() -> int:
                 "serve_audio": audio_launches.get(name, 0),
                 "train_audio": train_audio_launches.get(name, 0),
                 "train_hybrid": train_hybrid_launches.get(name, 0),
-                "train_ckpt": train_ckpt_launches.get(name, 0)}
+                "train_ckpt": train_ckpt_launches.get(name, 0),
+                "train_mesh": train_mesh_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

@@ -20,19 +20,29 @@ Guarantees:
   trainer updates its tensors in place, so a snapshot that shared their
   memory would be written while the next step overwrites it), then writes on
   a background thread while training continues;
-* restore by name onto ``device``. The reference's ``shardings=`` (a
-  placement for each leaf over a device mesh) is ``device=`` here, one
-  device for every leaf, until the port places tensors over a mesh.
+* elastic restore — leaves are loaded by name onto ``device``, or with
+  ``shardings=`` (a ``sharding.NamedSharding`` per leaf name) placed over
+  the caller's mesh, whatever mesh wrote them;
+* a sharded save gathers each ``DTensor`` leaf (a collective: every rank
+  saves at the same steps) and only rank 0 copies it to the host and
+  writes, so the layout on disk is the same as from one device;
+  ``AsyncCheckpointer.wait`` holds every rank until rank 0's write has
+  ended, and raises on each if it failed;
+* ``latest_step`` survives a crash inside a rewrite of a committed step
+  (see there), where the reference's returns None.
 """
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import _msgpack
@@ -72,14 +82,23 @@ def _host_copy(leaf) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
-def _snapshot(tree) -> tuple[dict, dict, int]:
-    """(name -> host array, meta, bytes) of a tree's leaves."""
-    host, meta = {}, {}
+def _snapshot(tree, keep: bool = True) -> tuple[dict, dict, int]:
+    """(name -> host array, meta, bytes) of a tree's leaves. Each ``DTensor``
+    leaf is gathered whole, a collective every rank takes part in;
+    ``keep=False`` (a rank that does not write) copies nothing to the host
+    and returns no arrays, with the bytes a writer copies."""
+    host, meta, nbytes = {}, {}, 0
     for name, leaf in _flatten(tree).items():
         if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
             meta[name] = {"dtype": "bfloat16"}
-        host[name] = _host_copy(leaf)
-    return host, meta, sum(a.nbytes for a in host.values())
+        if isinstance(leaf, DTensor):
+            leaf = leaf.detach().full_tensor()
+        if keep:
+            host[name] = _host_copy(leaf)
+            nbytes += host[name].nbytes
+        else:
+            nbytes += leaf.nbytes if isinstance(leaf, torch.Tensor) else np.asarray(leaf).nbytes
+    return host, meta, nbytes
 
 
 def _write(ckpt_dir: str, step: int, host: dict, meta: dict, extra: dict | None) -> str:
@@ -106,9 +125,24 @@ def _write(ckpt_dir: str, step: int, host: dict, meta: dict, extra: dict | None)
     return final
 
 
+def _ranks() -> int:
+    """The ranks of the default process group; 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of the default process group, or
+    a process that has none."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Synchronous atomic save. Returns the committed directory."""
-    host, meta, _ = _snapshot(tree)
+    """Synchronous atomic save. Returns the committed directory (on a rank
+    other than 0, the one rank 0 commits)."""
+    writes = _writes()
+    host, meta, _ = _snapshot(tree, keep=writes)
+    if not writes:
+        return os.path.join(ckpt_dir, f"step_{step:09d}")
     return _write(ckpt_dir, step, host, meta, extra)
 
 
@@ -131,10 +165,13 @@ class AsyncCheckpointer:
     def save_async(self, step: int, tree, extra: dict | None = None):
         self.wait()
         t0 = time.perf_counter()
-        host, meta, nbytes = _snapshot(tree)
+        writes = _writes()
+        host, meta, nbytes = _snapshot(tree, keep=writes)
         record = {"step": step, "bytes": nbytes, "snapshot_s": time.perf_counter() - t0,
                   "write_s": None}
         self.saves.append(record)
+        if not writes:
+            return
 
         def _run():
             try:
@@ -149,11 +186,19 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Wait for the save in flight; raise the error its write met. On a
+        group of several ranks a collective: only rank 0 writes, so every
+        rank returns once its write has ended, and raises if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self.last_error is not None:
-            err, self.last_error = self.last_error, None
+        err, self.last_error = self.last_error, None
+        if _ranks() > 1:
+            said = [None if err is None else f"{type(err).__name__}: {err}"]
+            dist.broadcast_object_list(said, src=0)
+            if err is None and said[0] is not None:
+                err = RuntimeError(f"rank 0's checkpoint write failed ({said[0]})")
+        if err is not None:
             raise err
 
     def _gc(self):
@@ -163,21 +208,37 @@ class AsyncCheckpointer:
             shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
 
 
+def _complete(path: str) -> bool:
+    return all(os.path.isfile(os.path.join(path, f)) for f in ("manifest.msgpack", "arrays.npz"))
+
+
 def latest_step(ckpt_dir: str) -> int | None:
+    """The step LATEST names. Where it names a directory that is missing (a
+    crash between ``_write``'s removal of a committed step it rewrites and
+    the rename of the new copy), the newest complete ``step_*`` directory's,
+    where the reference's returns None and a restart would begin anew."""
     latest = os.path.join(ckpt_dir, "LATEST")
     if not os.path.exists(latest):
         return None
     with open(latest) as f:
         name = f.read().strip()
-    if not os.path.isdir(os.path.join(ckpt_dir, name)):
-        return None
-    return int(name.split("_")[1])
+    if os.path.isdir(os.path.join(ckpt_dir, name)):
+        return int(name.split("_")[1])
+    steps = [int(d[5:]) for d in os.listdir(ckpt_dir)
+             if re.fullmatch(r"step_\d+", d) and _complete(os.path.join(ckpt_dir, d))]
+    return max(steps, default=None)
 
 
-def restore(ckpt_dir: str, step: int | None = None, device=None):
+def restore(ckpt_dir: str, step: int | None = None, device=None, shardings=None):
     """Load a checkpoint, every leaf a tensor on ``device`` (default: the
     card) with the dtype and bits it was saved with; bf16 leaves come back
-    as ``torch.bfloat16``. Returns (step, tree, extra)."""
+    as ``torch.bfloat16``. ``shardings``: a tree of ``NamedSharding``s
+    matching the saved names in part or whole; a leaf it names is placed
+    over that mesh as a ``DTensor`` (``device`` then defaults to the
+    mesh's), whatever mesh saved it. Returns (step, tree, extra)."""
+    flat_sh = _flatten(shardings) if shardings is not None else {}
+    if flat_sh and device is None:
+        device = next(iter(flat_sh.values())).mesh.device_type
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -194,5 +255,7 @@ def restore(ckpt_dir: str, step: int | None = None, device=None):
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            flat[name] = t.to(device)
+            t = t.to(device)
+            sh = flat_sh.get(name)
+            flat[name] = t if sh is None else distribute_tensor(t, sh.mesh, sh.placements)
     return manifest["step"], _unflatten(flat), manifest.get("extra", {})

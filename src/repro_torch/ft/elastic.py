@@ -14,8 +14,9 @@
   segment's state, rebuilds with whatever ``mesh_factory`` now gives, and
   resumes from the last committed checkpoint.
 
-``mesh_factory`` keeps the reference's name; the port runs on one device, so
-the trainer's returns that device. ``RunState``, ``QueueDepthAutoscaler``
+``mesh_factory`` returns what ``build_state`` places the state on: the
+trainer's returns its device, or with ``--mesh-model`` a device mesh.
+``RunState``, ``QueueDepthAutoscaler``
 and the loop are the reference's (``src/repro/ft/elastic.py``), with three
 differences:
 
@@ -25,12 +26,16 @@ differences:
   parameters and optimizer state would otherwise stay on the card beside
   the new ones: 15.4 GB for a 1.1 B-parameter model with fp32 master
   weights and moments) and any save still being written is waited for, so
-  the restart resumes from it;
+  the restart resumes from it; on a group of several ranks every rank
+  waits for rank 0's write, the only one, and restores the step rank 0
+  reads;
 * a restart is in-process, so it recovers from a Python exception (an
   injected failure, a hang the watchdog reports, an out-of-memory error)
   but not from a sticky CUDA error: an illegal address or a device-side
   assert leaves the process's CUDA context unusable, and every later
-  segment fails the same way. That needs a new process.
+  segment fails the same way. That needs a new process. Nor, on a mesh of
+  several ranks, from a failure of one rank: the others wait in a
+  collective.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ import gc
 import time
 from dataclasses import dataclass, field
 from typing import Callable
+
+import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step
 
@@ -115,7 +122,7 @@ class ElasticRunner:
         restarts = 0
         while True:
             mesh = self.mesh_factory()
-            start = latest_step(self.ckpt_dir) if self.ckpt is not None else None
+            start = self._start_step() if self.ckpt is not None else None
             state = self.build_state(mesh, start)
             state.mesh = mesh
             state.restarts = restarts
@@ -135,10 +142,24 @@ class ElasticRunner:
             self._finish_inflight_save()
             time.sleep(0.1)
 
+    def _start_step(self) -> int | None:
+        """LATEST's step as rank 0 reads it, on every rank of a group of
+        several: rank 0 alone writes, and every rank must restore the same
+        step, or their loops run different numbers of steps and their
+        collectives part."""
+        step = latest_step(self.ckpt_dir)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            said = [step]
+            dist.broadcast_object_list(said, src=0)
+            step = said[0]
+        return step
+
     def _finish_inflight_save(self):
         """Let a save the failed segment started commit before the restart
-        reads LATEST. A save that failed leaves the last committed checkpoint
-        as it was (the write is atomic), so the restart goes on from that."""
+        reads LATEST (on several ranks, rank 0's write: ``wait`` is a
+        collective there). A save that failed leaves the last committed
+        checkpoint as it was (the write is atomic), so the restart goes on
+        from that."""
         try:
             self.ckpt.wait()
         except Exception as e:  # noqa: BLE001 — the restart resumes from LATEST

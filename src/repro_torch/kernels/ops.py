@@ -1,9 +1,18 @@
 """Dispatch for the kernels: a CUDA tensor goes to the hand-written kernel, a
 CPU tensor to the kernel's plain version, and there is no third way. The
-model layer calls these under ``impl="kernel"``."""
+model layer calls these under ``impl="kernel"``.
+
+Under a device mesh the kernels take local shards: ``flash_attention_op``
+given ``DTensor``s runs its forward and backward (K1, K2a/K2b) on each
+rank's shard through ``local_map``, batch over "data" and heads over
+"model" (``attention_on_local_shards``). The serving and SSM kernels (K3,
+K4, K5) refuse a ``DTensor``.
+"""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (check_inputs as _check_attention,
@@ -17,6 +26,7 @@ from repro_torch.kernels.fused_ffn import (check_inputs as _check_ffn, fused_ffn
                                            fused_ffn_plain)
 from repro_torch.kernels.ssd_scan import (check_inputs as _check_ssd, ssd_scan,
                                           ssd_scan_plain)
+from repro_torch.sharding.partition import mesh_sizes, role_placements
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -28,6 +38,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale):
         if q.is_cuda:
+            # a local shard or a KV-head slice may be a strided view: the
+            # kernels read contiguous rows
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             out, lse = flash_attention(q, k, v, causal=causal, scale=scale)
         else:
             _check_attention(q, k, v, causal)
@@ -49,14 +62,72 @@ def flash_attention_op(q, k, v, *, causal: bool = True, scale=None):
     """q (B,Sq,H,D), k (B,Skv,KVH,D), v (B,Skv,KVH,Dv) -> (B,Sq,H,Dv),
     differentiable. On the card (D, Dv) is one of the kernels' ``HEAD_DIMS``
     (MLA's (192, 128) among them), else the launch raises; the plain versions
-    take any pair."""
-    return FlashAttentionFn.apply(q, k, v, causal, scale)
+    take any pair. ``DTensor`` inputs run on their local shards."""
+    def attend(q_, k_, v_):
+        return FlashAttentionFn.apply(q_, k_, v_, causal, scale)
+
+    if isinstance(q, DTensor):
+        return attention_on_local_shards(attend, q, k, v)
+    return attend(q, k, v)
+
+
+def _local_kv_heads(h: int, kvh: int, local_h: int, rank: int) -> slice | torch.Tensor:
+    """The KV heads that query heads ``[rank*local_h, (rank+1)*local_h)`` of
+    ``h`` read, ``kvh`` KV heads in all: a slice where those query heads fall
+    into whole groups of one size, else an index of one KV head per query
+    head (the KV heads expanded)."""
+    g = h // kvh
+    idx = [(rank * local_h + j) // g for j in range(local_h)]
+    lo, hi = idx[0], idx[-1] + 1
+    if all(idx.count(i) * (hi - lo) == local_h for i in range(lo, hi)):
+        return slice(lo, hi)
+    return torch.tensor(idx)
+
+
+def attention_on_local_shards(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention on plain (B,S,H,D) tensors) on ``DTensor``
+    inputs in the reference's attention layout: batch over "data", heads
+    over "model", the full sequence, each input redistributed to it. Where
+    the KV heads do not divide "model" they stay replicated while the query
+    heads are sharded, and each rank reads the KV heads of its own query
+    heads: their gradients are partial sums over "model". Returns a
+    ``DTensor`` in the same layout."""
+    mesh = q.device_mesh
+    sizes = mesh_sizes(mesh)
+    b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
+    batch = Shard(0) if "data" in sizes and b % sizes["data"] == 0 else None
+    heads = "model" in sizes and h % sizes["model"] == 0
+    kv_heads = heads and kvh % sizes["model"] == 0
+    q_layout = role_placements(mesh, batch, Shard(2) if heads else None)
+    kv_layout = role_placements(mesh, batch, Shard(2) if kv_heads else None)
+    kv_grad = kv_layout if kv_heads or not heads else role_placements(mesh, batch, Partial())
+    rank = mesh.get_local_rank("model") if heads and not kv_heads else 0
+
+    def local(q_, k_, v_):
+        if heads and not kv_heads:
+            sel = _local_kv_heads(h, kvh, q_.shape[2], rank)
+            k_, v_ = k_[:, :, sel], v_[:, :, sel]
+        return fn(q_, k_, v_)
+
+    return local_map(local, out_placements=q_layout, in_placements=(q_layout, kv_layout, kv_layout),
+                     in_grad_placements=(q_layout, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def refuse_dtensor(what: str, waits_for: str, *tensors) -> None:
+    """Raise on a ``DTensor`` argument: the kernel takes a whole tensor on one
+    device, and the path that would shard its inputs is not ported."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise NotImplementedError(f"{what}: no sharded path under a device mesh yet "
+                                  f"({waits_for}); call it with plain tensors")
 
 
 def flash_decode_op(q, k, v, kv_len, *, scale=None):
     """q (B,H,D), k/v (B,S,KVH,D), kv_len (a host int, or a one-element
     integer tensor on q's device; int32 on the card) -> (B,H,D). Forward
     only: the decode path runs under ``no_grad``."""
+    refuse_dtensor("flash_decode", "serving through a mesh and the sequence-sharded "
+                   "cache's partial-softmax combine are items 13b and 14", q, k, v)
     if q.is_cuda:
         return flash_decode(q, k, v, kv_len, scale=scale)
     _check_decode(q, k, v, kv_len)
@@ -69,6 +140,8 @@ def ssd_scan_op(x, dt, A, b_, c_):
     device: the reference has no backward for this kernel, so inputs that
     require grad are refused; ``models.ssm.ssd_chunked`` is the
     differentiable path."""
+    refuse_dtensor("ssd_scan", "SSM serving and training through a mesh wait for items 13b "
+                   "and 14", x, dt, A, b_, c_)
     if x.is_cuda:
         return ssd_scan(*(a.contiguous() for a in (x, dt, A, b_, c_)))
     _check_ssd(x, dt, A, b_, c_)
@@ -79,6 +152,8 @@ def ssd_scan_op(x, dt, A, b_, c_):
 def fused_ffn_op(x, w_gate, w_up, w_down):
     """x (T,D), w_gate/w_up (D,F), w_down (F,D) -> (T,D). Forward only, as
     in the reference: the wrapper refuses inputs that require grad."""
+    refuse_dtensor("fused_ffn", "serving through a mesh waits for items 13b and 14",
+                   x, w_gate, w_up, w_down)
     if x.is_cuda:
         return fused_ffn(x.contiguous(), w_gate, w_up, w_down)
     _check_ffn(x, w_gate, w_up, w_down)

@@ -17,6 +17,7 @@ absorbed form over the latent cache, plain products as in the reference.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -71,10 +72,17 @@ def decode_attention(q, k_cache, v_cache, kv_len: int, scale: float | None = Non
 
 
 def sdpa(q, k, v, *, causal: bool, impl: str = "kernel", scale=None):
+    """Under a device mesh (``DTensor`` inputs) either implementation runs on
+    each rank's local shard, batch over "data" and heads over "model"."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not one of {IMPLS}")
     if impl == "naive" or q.shape[1] <= 256:
-        return naive_attention(q, k, v, causal=causal, scale=scale)
+        def attend(q_, k_, v_):
+            return naive_attention(q_, k_, v_, causal=causal, scale=scale)
+
+        if isinstance(q, DTensor):
+            return kops.attention_on_local_shards(attend, q, k, v)
+        return attend(q, k, v)
     return kops.flash_attention_op(q, k, v, causal=causal, scale=scale)
 
 

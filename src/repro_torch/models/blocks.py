@@ -9,6 +9,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.base import Specs
 from repro_torch.models.layers import ffn, ffn_specs, rmsnorm, rmsnorm_specs
+from repro_torch.sharding.partition import sp_boundary, sp_gather
 
 
 # ---- dense ---------------------------------------------------------------------------
@@ -35,11 +36,16 @@ def dense_block_specs(cfg: ModelConfig) -> Specs:
 
 def dense_block(params, cfg: ModelConfig, x, positions, impl="kernel",
                 causal=True, fused=False):
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    h = attention(params["attn"], cfg, h, positions, causal=causal, impl=impl)
-    x = x + h
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + ffn(params["ffn"], h, fused=fused)
+    """Under a mesh the residual stream is sequence-parallel: the norms run
+    on it, the attention and FFN on the whole sequence (``sp_gather``), and
+    their outputs are reduce-scattered back to it (``sp_boundary``) before
+    the residual adds, so that no gradient reaches a product with its
+    sequence sharded, and the block returns the stream sequence-parallel.
+    Without a mesh both do nothing."""
+    h = sp_gather(rmsnorm(params["ln1"], x, cfg.norm_eps))
+    x = x + sp_boundary(attention(params["attn"], cfg, h, positions, causal=causal, impl=impl))
+    h = sp_gather(rmsnorm(params["ln2"], x, cfg.norm_eps))
+    return x + sp_boundary(ffn(params["ffn"], h, fused=fused))
 
 
 # ---- MoE ---------------------------------------------------------------------------

@@ -1,15 +1,27 @@
 """Shared layer primitives: RMSNorm, RoPE, SwiGLU FFN, embeddings, chunked
 cross-entropy.
 Pure functions over param dicts (see ``models.base``). Weights are stored
-``(d_in, d_out)`` and applied as ``x @ W``."""
+``(d_in, d_out)`` and applied as ``x @ W``.
+
+Under a device mesh the weights and activations are ``DTensor``s, and
+DTensor's sharding rules carry the norms, RoPE and the products. Two ops
+take their weight replicated (``Replicate()`` on every mesh dim) and run on
+each rank's rows instead (``_on_rows``): the embedding gather, whose vocab
+shards over "model", and the chunked cross-entropy (the vocab projection,
+its gold-logit gather and the per-chunk recompute), so that each rank runs
+the very ops of the single-device path on its rows.
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import P, Specs
+from repro_torch.sharding.partition import mesh_sizes, replicate_like, role_placements
 
 
 # --------------------------------------------------------------------------------
@@ -41,7 +53,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x: (..., S, H, D); positions: broadcastable to (..., S). Half-split
     layout: the first D/2 lanes rotate against the last D/2; angles in fp32."""
     half = x.shape[-1] // 2
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (half,)
+    positions = replicate_like(positions, x)
+    freqs = replicate_like(rope_frequencies(x.shape[-1], theta, x.device), x)   # (half,)
     angles = positions[..., :, None].float() * freqs            # (..., S, half)
     cos = torch.cos(angles)[..., :, None, :]                    # (..., S, 1, half)
     sin = torch.sin(angles)[..., :, None, :]
@@ -88,8 +101,37 @@ def embedding_specs(vocab: int, d: int, tied: bool) -> Specs:
     return s
 
 
+def _on_rows(fn, weight, *rows, out_rows=True):
+    """``fn(weight, *rows)`` on each rank's rows of ``DTensor`` inputs: the
+    weight replicated, each (B, ...) ``rows`` tensor split over "data" by
+    its batch where that divides (replicated otherwise) and replicated over
+    "model". The weight's gradient is a partial sum over "data" where the
+    rows are split. ``out_rows``: the outputs are rows too; else they are
+    sums over the rows (partial over "data")."""
+    mesh = weight.device_mesh
+    sizes = mesh_sizes(mesh)
+    split = "data" in sizes and rows[0].shape[0] % sizes["data"] == 0
+
+    def layout(kind):
+        return role_placements(mesh, kind if split else None)
+
+    rows = tuple(replicate_like(r, weight) for r in rows)
+    out = layout(Shard(0) if out_rows else Partial())
+    return local_map(fn, out_placements=out if out_rows else (out, out),
+                     in_placements=(role_placements(mesh),) + (layout(Shard(0)),) * len(rows),
+                     in_grad_placements=(layout(Partial()),) + (layout(Shard(0)),) * len(rows),
+                     device_mesh=mesh, redistribute_inputs=True)(weight, *rows)
+
+
+def _gather_rows(w, tokens):
+    return w[tokens]
+
+
 def embed(params, tokens):
-    return params["embedding"][tokens]
+    w = params["embedding"]
+    if isinstance(w, DTensor):
+        return _on_rows(_gather_rows, w, tokens)
+    return _gather_rows(w, tokens)
 
 
 def unembed_weight(params):
@@ -105,19 +147,11 @@ def _chunk_loss(hx, w, lx, mx):
     return ((lse - gold) * mx).sum()
 
 
-def chunked_cross_entropy(params, h, labels, chunk: int = 512, mask=None):
-    """Vocab projection + softmax cross-entropy without materializing the
-    full logits. h: (B,S,D); labels: (B,S); mask: optional (B,S) weights.
-
-    S is padded to a multiple of ``chunk``; each chunk's (B, chunk, V) logits
-    are taken in the hidden states' dtype and cast to fp32, as the reference
-    does, and recomputed in the backward (``torch.utils.checkpoint`` per
-    chunk). Returns the masked sum over ``max(mask.sum(), 1)``."""
-    w = unembed_weight(params)
+def _loss_sums(w, h, labels, mask, chunk: int = 512):
+    """(masked loss sum, mask sum) of ``chunked_cross_entropy``."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
-    mask = torch.ones((b, s), dtype=torch.float32, device=h.device) if mask is None else mask.float()
     if pad:
         h = F.pad(h, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
@@ -127,7 +161,33 @@ def chunked_cross_entropy(params, h, labels, chunk: int = 512, mask=None):
         sl = slice(c0, c0 + chunk)
         total = total + checkpoint(_chunk_loss, h[:, sl], w, labels[:, sl].long(), mask[:, sl],
                                    use_reentrant=False, preserve_rng_state=False)
-    return total / torch.clamp(mask.sum(), min=1.0)
+    return total, mask.sum()
+
+
+def chunked_cross_entropy(params, h, labels, chunk: int = 512, mask=None):
+    """Vocab projection + softmax cross-entropy without materializing the
+    full logits. h: (B,S,D); labels: (B,S); mask: optional (B,S) weights.
+
+    S is padded to a multiple of ``chunk``; each chunk's (B, chunk, V) logits
+    are taken in the hidden states' dtype and cast to fp32, as the reference
+    does, and recomputed in the backward (``torch.utils.checkpoint`` per
+    chunk). Returns the masked sum over ``max(mask.sum(), 1)``. Under a mesh
+    each rank sums its rows against the replicated vocab projection."""
+    w = unembed_weight(params)
+    b, s, _ = h.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    mask = mask.float()
+    if isinstance(w, DTensor):
+        total, count = _on_rows(lambda w_, *r: _loss_sums(w_, *r, chunk=chunk), w, h, labels,
+                                mask, out_rows=False)
+        # sums over "data": the loss is one number on every rank (``float``
+        # of a partial sum would read this rank's share)
+        whole = role_placements(w.device_mesh)
+        count = count.redistribute(placements=whole)
+        return (total / torch.clamp(count, min=1.0)).redistribute(placements=whole)
+    total, count = _loss_sums(w, h, labels, mask, chunk)
+    return total / torch.clamp(count, min=1.0)
 
 
 def logits_for_tokens(params, h):

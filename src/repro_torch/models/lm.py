@@ -31,6 +31,12 @@ chunked scan, differentiable), by default what ``impl`` says, so that a
 model trains with K1/K2 attention beside the naive scan (``scan="naive"``,
 as ``launch/train`` builds it). ``fused_ffn=True`` runs every SwiGLU MLP
 but the routed experts through K4 (forward only).
+
+The dense family (``dense``, ``vlm``) also trains through a device mesh:
+parameters and batch as ``DTensor``s (``sharding.partition``), the residual
+stream sequence-parallel between blocks (``sp_boundary``), attention on each
+rank's shards (``kernels.ops``). The other families through a mesh are item
+13b's.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_s
                                        ffn, logits_for_tokens, rmsnorm, rmsnorm_specs)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import SCANS
+from repro_torch.sharding.partition import sp_boundary
 
 REMATS = ("none", "dots", "full")
 # what remat "dots" keeps: the outputs of the matrix products, as
@@ -230,8 +237,11 @@ class LanguageModel(nn.Module):
 
         if cfg.family in ("dense", "vlm"):
             def body(x_, p_):
-                return blocks.dense_block(p_, cfg, x_, positions, impl=self.impl,
-                                          fused=self.fused_ffn)
+                # the sequence-parallel residual boundary of the reference's
+                # dense scan (the block keeps its output there): a no-op
+                # without a device mesh
+                return blocks.dense_block(p_, cfg, sp_boundary(x_), positions,
+                                          impl=self.impl, fused=self.fused_ffn)
         else:
             def body(x_, p_):
                 return blocks.mamba_block(p_, cfg, x_, scan=self.scan)

@@ -12,6 +12,12 @@ of tensors; their leaves are taken in sorted-key order, as ``jax.tree``
 flattens a dict. Unlike the reference, which returns new arrays,
 ``apply_updates`` updates the parameters and the state IN PLACE (``copy_``
 under ``no_grad``), PyTorch's idiom, so no second copy of either is held.
+
+Under a device mesh the leaves are ``DTensor``s: the state shards exactly
+like its parameters (``state_shardings``), the update runs on each rank's
+shards, and the global norm reduces across ranks. Stochastic rounding
+draws its bits per leaf; on a mesh of more than one rank each shard would
+draw other bits than the unsharded leaf does, so it raises there.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.partition import NamedSharding
 
 
 @dataclass(frozen=True)
@@ -103,7 +112,12 @@ def _dither_round_bf16(x32: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
 
 
 def _stochastic_round_bf16(generator: torch.Generator, x32: torch.Tensor) -> torch.Tensor:
-    """Unbiased fp32 -> bf16 rounding via uniform dither of the truncated bits."""
+    """Unbiased fp32 -> bf16 rounding via uniform dither of the truncated bits.
+    A ``DTensor`` (on a one-rank mesh: its shard is the whole leaf) draws
+    and rounds its local tensor."""
+    if isinstance(x32, DTensor):
+        local = _stochastic_round_bf16(generator, x32.to_local())
+        return DTensor.from_local(local, x32.device_mesh, x32.placements, run_check=False)
     noise = torch.randint(0, 1 << 16, x32.shape, dtype=torch.int32, device=x32.device,
                           generator=generator)
     return _dither_round_bf16(x32, noise)
@@ -115,6 +129,13 @@ def apply_updates(params, grads, state, cfg: OptimConfig, rng: torch.Generator |
     ``(params, state, metrics)``, the first two being the objects passed in.
     ``rng`` (a generator on the parameters' device) drives stochastic
     rounding when it is on and no master is kept."""
+    if (cfg.stochastic_rounding and not cfg.master_weights and rng is not None
+            and any(isinstance(p, DTensor) and p.device_mesh.size() > 1
+                    for p in tree_leaves(params))):
+        raise NotImplementedError(
+            "stochastic rounding under a mesh of more than one rank: each shard would draw "
+            "other random bits than the unsharded leaf; train with fp32 master weights "
+            "(master_weights=True, as TRAIN_MSM) or on one rank")
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = global_norm(grads)
@@ -157,3 +178,16 @@ def apply_updates(params, grads, state, cfg: OptimConfig, rng: torch.Generator |
 
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def state_shardings(param_shardings_tree, cfg: OptimConfig, mesh):
+    """Optimizer state shards exactly like its parameters; the step counter
+    is replicated."""
+    out = {
+        "step": NamedSharding(mesh, ()),
+        "mu": param_shardings_tree,
+        "nu": param_shardings_tree,
+    }
+    if cfg.master_weights:
+        out["master"] = param_shardings_tree
+    return out

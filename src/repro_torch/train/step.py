@@ -9,11 +9,16 @@ Gradient compression options, as in the reference:
                 carried in the optimizer state (1-bit-Adam-style EF,
                 arXiv:2102.02888): the quantization error is re-injected on
                 the next step.
+
+Under a device mesh the parameters, gradients and state are ``DTensor``s;
+``grad_shardings`` and ``batch_shardings`` pin gradients and microbatches
+to their placements, as the reference's ``with_sharding_constraint``s do.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.partition import device_put
 from repro_torch.train import optim as optim_mod
 from repro_torch.train.optim import tree_leaves, tree_map, tree_unflatten
 
@@ -51,11 +56,23 @@ def compress_grads(grads, method: str | None, ef_state):
 def init_ef_state(params, method: str | None):
     if method != "int8_ef":
         return None
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return tree_map(_zeros_f32, params)
+
+
+def _zeros_f32(p):
+    """fp32 zeros of ``p``'s shape (a ``DTensor``'s at its placements)."""
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
+def _place(tree, shardings):
+    """``tree`` placed on ``shardings`` (``sharding.device_put``); with
+    ``shardings=None`` as it is."""
+    return tree if shardings is None else device_put(tree, shardings)
 
 
 def make_train_step(model, opt_cfg: optim_mod.OptimConfig,
-                    grad_compression: str | None = None, microbatches: int = 1):
+                    grad_compression: str | None = None, microbatches: int = 1,
+                    grad_shardings=None, batch_shardings=None):
     """Returns ``train_step(params, opt_state, batch, rng=None) -> (params,
     opt_state, metrics)``. ``params`` is ``model.params``: the step updates
     it and ``opt_state`` in place and returns them. ``opt_state`` carries the
@@ -64,7 +81,13 @@ def make_train_step(model, opt_cfg: optim_mod.OptimConfig,
 
     ``microbatches > 1`` accumulates gradients: the batch is split along dim
     0, each part's gradients are summed in fp32, and loss and gradients are
-    divided by ``microbatches``."""
+    divided by ``microbatches``.
+
+    Under a mesh: ``grad_shardings`` (the parameters' ``NamedSharding``s)
+    pins each microbatch's gradients and the fp32 accumulator to the
+    parameters' placements, so the accumulator stays as sharded as the
+    parameters; ``batch_shardings`` (one per batch key) pins each
+    microbatch's rows."""
 
     def grad_fn(params, batch):
         loss = model.loss(batch)
@@ -77,16 +100,18 @@ def make_train_step(model, opt_cfg: optim_mod.OptimConfig,
             raise ValueError("train_step updates model.params in place: pass model.params")
         if microbatches <= 1:
             loss, grads = grad_fn(params, batch)
+            grads = _place(grads, grad_shardings)
         else:
             def split(x):
                 return x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
 
             parts = {k: split(v) for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            gsum = _place(tree_map(_zeros_f32, params), grad_shardings)
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(microbatches):
-                l, g = grad_fn(params, {k: v[i] for k, v in parts.items()})
+                mb = _place({k: v[i] for k, v in parts.items()}, batch_shardings)
+                l, g = grad_fn(params, mb)
+                g = _place(g, grad_shardings)
                 for acc, gi in zip(tree_leaves(gsum), tree_leaves(g)):
                     acc.add_(gi.float())
                 lsum = lsum + l

@@ -5,6 +5,7 @@ int32 leaves to the bit, the manifest codec byte for byte against
 ``msgpack``, ``LanguageModel.load_params``' refusals, and the runner's
 handling of a failed segment."""
 import os
+import shutil
 import threading
 import time
 import weakref
@@ -19,7 +20,7 @@ from repro_torch.checkpoint import _msgpack, ckpt
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, restore, save
 from repro_torch.ft import ElasticRunner, RunState, StepWatchdog, StragglerStats
 from repro_torch.models import LanguageModel
-from repro_torch.train.optim import tree_map
+from repro_torch.train.optim import tree_leaves, tree_map
 
 CPU = torch.device("cpu")
 
@@ -145,6 +146,65 @@ def test_elastic_restart_resumes_from_checkpoint(tmp_path):
 
 
 # --- the port's own cases ----------------------------------------------------------
+
+def test_latest_step_falls_back_when_latest_names_a_missing_step(tmp_path):
+    """LATEST names step 4, whose directory a rewrite removed and never put
+    back: the newest complete step (with its manifest and arrays) is taken,
+    not an incomplete directory and not the temporary copy."""
+    tree = {"w": torch.arange(3.0)}
+    save(str(tmp_path), 2, tree)
+    save(str(tmp_path), 4, {"w": torch.zeros(3)})
+    shutil.rmtree(tmp_path / "step_000000004")
+    os.makedirs(tmp_path / "step_000000005")
+    (tmp_path / "step_000000003").mkdir()
+    (tmp_path / "step_000000003" / "manifest.msgpack").write_bytes(b"")
+    os.makedirs(tmp_path / ".tmp_step_000000004_1")
+    assert (tmp_path / "LATEST").read_text() == "step_000000004"
+    assert latest_step(str(tmp_path)) == 2
+    step, out, _ = restore(str(tmp_path), device="cpu")
+    assert step == 2 and torch.equal(out["w"], tree["w"])
+    shutil.rmtree(tmp_path / "step_000000002")
+    assert latest_step(str(tmp_path)) is None
+
+
+def test_a_crash_inside_a_rewrite_resumes_to_the_bits_of_an_uninterrupted_run(
+        tmp_path, monkeypatch, capsys):
+    """The forced save at the end of a segment rewrites step 4, which the
+    periodic save committed: ``_write`` removes step_000000004 and then
+    renames the new copy into place. A crash between the two (``os.rename``
+    raising once) leaves LATEST naming a missing directory. The runner
+    restarts from step 2, the newest complete step, and ends equal to the
+    bit to a run without checkpoints; the reference's ``latest_step`` gives
+    None there, and the restart would begin again from step 0."""
+    from repro_torch.launch import train as ttrain
+
+    def run(ckpt_dir=None):
+        argv = ["--arch", "tinyllama-1.1b-smoke", "--steps", "4", "--global-batch", "2",
+                "--seq-len", "32", "--save-every", "2", "--log-every", "100", "--device", "cpu"]
+        argv += ["--ckpt-dir", str(ckpt_dir)] if ckpt_dir else []
+        return ttrain.make_runner(ttrain.parse_args(argv), CPU).run(4)
+
+    whole = run()
+    rename, renamed = os.rename, []
+
+    def crashing_rename(src, dst):
+        renamed.append(os.path.basename(dst))
+        if renamed.count("step_000000004") == 2 and len(renamed) == 3:
+            raise OSError("injected crash between the removal and the rename")
+        rename(src, dst)
+
+    monkeypatch.setattr(ckpt.os, "rename", crashing_rename)
+    resumed = run(tmp_path)
+    out = capsys.readouterr().out
+    assert renamed[:3] == ["step_000000002", "step_000000004", "step_000000004"]
+    assert "injected crash" in out and "[train] restored step 2" in out
+    assert resumed.restarts == 1 and resumed.step == whole.step == 4
+    assert resumed.final_losses == whole.final_losses[2:]
+    for got, want in zip(tree_leaves(resumed.params), tree_leaves(whole.params)):
+        assert torch.equal(got, want)
+    for got, want in zip(tree_leaves(resumed.opt_state), tree_leaves(whole.opt_state)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert latest_step(str(tmp_path)) == 4
 
 def test_snapshot_is_a_copy_the_next_step_cannot_overwrite(tmp_path, monkeypatch):
     """``save_async``, then an in-place update of the saved parameter and its

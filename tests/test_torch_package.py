@@ -44,7 +44,8 @@ def test_every_module_is_checked():
                    "serve/step.py", "launch/serve.py", "train/__init__.py", "train/optim.py",
                    "train/step.py", "data/pipeline.py", "launch/train.py",
                    "checkpoint/_msgpack.py", "checkpoint/ckpt.py", "ft/watchdog.py",
-                   "ft/elastic.py"):
+                   "ft/elastic.py", "sharding/__init__.py",
+                   "sharding/partition.py", "launch/mesh.py"):
         assert needed in names
     for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
                "ssd_scan.cu", "fused_ffn.cu", "mma_tile.cuh"):
@@ -76,7 +77,10 @@ def test_entry_points_raise_without_a_card():
     import repro_torch.configs as configs
     from repro_torch.convert import params_from_numpy
     from repro_torch.convert import opt_state_from_numpy
+    import torch.distributed as dist
+
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import LanguageModel
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -100,6 +104,14 @@ def test_entry_points_raise_without_a_card():
         train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "zamba2-1.2b-smoke", "--fused-ffn"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--mesh-model", "1"])
+    # the mesh asks for the card before it starts a process group
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh(model=1, device="cuda")
+    assert not dist.is_initialized()
 
 
 def test_checkpoint_entry_points_raise_without_a_card(tmp_path):
