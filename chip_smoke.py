@@ -32,10 +32,11 @@ Phases, one JSON object a line:
            G=6 and G=16, K2b's clusters of 6 and of 8 blocks walking 2 heads),
            each K1 and K2 launch repeated and required to agree bit for bit,
            each K2 row with its plan (tiles, cluster size); K1 and K2 also
-           timed at S=4096 (B=1), at D=128 (yi-6b's heads, B=2, S=1024) and
-           at MLA's training shape (deepseek-v2-236b: B=4 S=1024
+           timed at S=4096 (B=1), at D=128 (yi-6b's heads, B=2, S=1024), at
+           MLA's training shape (deepseek-v2-236b: B=4 S=1024
            H=KVH=128, q/k 192, v 128; K2 beside `sdpa`'s backward, with the
-           kernels it ran named), and checked at MLA's head dims at S=333,
+           kernels it ran named) and at the GQA-MoE's (qwen3-moe-235b-a22b:
+           B=4 S=1024 H=64 KVH=4 D=128, G=16), and checked at MLA's head dims at S=333,
            Sq=200 Skv=333 non-causal, G=4 and fp32 (K1 and K2 each);
            K1 and K3 also timed at the two D=128 models' serving shapes
            (internvl2-26b G=6, qwen3-moe-235b-a22b G=16: prefill B=4 S=512,
@@ -180,12 +181,25 @@ Phases, one JSON object a line:
            final parameters take the first batch's loss through the mesh at
            impl="kernel" and impl="naive"; each run's host step times and one
            more profiled step, and the differences B - A
+  train_mesh_moe  the moe family at full width and cut depth:
+           qwen3-moe-235b-a22b at 1 of its 94 layers (3 steps) and
+           deepseek-v2-236b at its dense layer + 1 MoE layer (2 steps), with
+           the large-model recipe (bf16 moments, no master weights,
+           stochastic rounding, bf16 gradient compression), remat "full",
+           the pipeline's 4 x 1024 batches; each without a mesh (A) and
+           through make_host_mesh()'s (1, 1) NCCL mesh in launch.train.build's
+           placements (B), the routed experts' grid over "model" and "data".
+           B's losses, final parameters and optimizer state equal A's to the
+           bit; K1 2 x layers, K2a and K2b layers a step in each run; per
+           model and run: host step times, one more profiled step, B - A,
+           the share of (token, expert) assignments the capacity dropped,
+           peak memory
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
-           serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh),
-           error, time, plain time, bound and the library call's time; K1
-           and K2 also at S=4096, D=128, MLA's training shape and the family
-           paths' four shapes, K1 also at the two D=128 models' and the MLA
+           serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh,
+           train_mesh_moe), error, time, plain time, bound and the library
+           call's time; K1 and K2 also at S=4096, D=128, MLA's and the
+           GQA-MoE's training shapes and the family paths' four shapes, K1 also at the two D=128 models' and the MLA
            model's prefill, K3 with its plan and at its seven other timed shapes
            (`more_shapes`); K4 also its launches by
            route and both routes' times at T=2048 and T=256; K5 its launches
@@ -298,6 +312,11 @@ CKPT_DISK_MARGIN = 2 << 30
 # train_mesh: launch.train's runner on tinyllama-1.1b at full size, without a
 # mesh and through a (1, 1) mesh on the card, MESH_STEPS steps each
 MESH_STEPS = 4
+# train_mesh_moe: (arch, layers, steps) of the moe family at full width, cut
+# in depth, without a mesh and through a (1, 1) mesh: qwen3-moe-235b-a22b at
+# 1 of its 94 layers (3.73 B parameters, ~30 GB of parameters, gradients and
+# bf16 moments), deepseek-v2-236b at its dense layer and one MoE layer (5.36 B)
+MESH_MOE_RUNS = ((MOE_ARCH, 1, 3), (MLA_ARCH, MLA_TRAIN_LAYERS, 2))
 
 
 def emit(obj) -> None:
@@ -701,12 +720,13 @@ def phase_occupancy(cfg, mla) -> list[dict]:
     return rows
 
 
-def phase_train_checks(cfg, wide_cfg, mla) -> tuple[dict, dict, dict, dict]:
+def phase_train_checks(cfg, wide_cfg, mla, moe) -> tuple[dict, dict, dict, dict]:
     """K2a/K2b over the training path's shape and the awkward ones, and K1 at
     the training path's shape; returns the two timed rows at the training
     shape and K1's and K2's timed rows at S=4096 (tinyllama's heads, B=1),
-    at D=128 (``wide_cfg``'s heads, B=2, S=1024) and at the ``mla`` model's
-    training shape (head dims (192, 128), B=4, S=1024)."""
+    at D=128 (``wide_cfg``'s heads, B=2, S=1024), at the ``mla`` model's
+    training shape (head dims (192, 128), B=4, S=1024) and at the ``moe``
+    model's (its heads, D=128, B=4, S=1024)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, fp32 = torch.bfloat16, torch.float32
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -747,6 +767,15 @@ def phase_train_checks(cfg, wide_cfg, mla) -> tuple[dict, dict, dict, dict]:
     more[key] = check_flash_attention_bwd(gen, b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, **dims,
                                           dtype=bf16, causal=True, timed=True)
     rows += [fa_more[key], more[key]]
+    # the GQA-MoE's training shape (qwen3-moe-235b-a22b: H=64 KVH=4 D=128,
+    # G=16), the one train_mesh_moe's steps take, on a generator of its own
+    moe_gen = torch.Generator(device="cuda").manual_seed(7)
+    moe_key = f"{moe.name} train"
+    moe_shape = dict(b=TRAIN_BATCH, sq=TRAIN_SEQ, skv=TRAIN_SEQ, h=moe.n_heads,
+                     kvh=moe.n_kv_heads, d=moe.head_dim, dtype=bf16, causal=True, timed=True)
+    fa_more[moe_key] = check_flash_attention(moe_gen, **moe_shape)
+    more[moe_key] = check_flash_attention_bwd(moe_gen, **moe_shape)
+    rows += [fa_more[moe_key], more[moe_key]]
     d, dv = dims["d"], dims["dv"]
     for kw in (
         dict(b=2, sq=333, skv=333, h=8, kvh=8, dtype=bf16, causal=True),        # no tile multiple
@@ -2805,6 +2834,194 @@ def phase_train_mesh(cfg) -> dict:
     return launches_b
 
 
+def phase_train_mesh_moe(configs) -> dict:
+    """The moe family at full width, cut in depth (MESH_MOE_RUNS), with the
+    reference's large-model recipe as train_mla takes it (TRAIN_LARGE_MSM:
+    bf16 moments, no master weights, stochastic rounding, bf16 gradient
+    compression), remat "full", impl="kernel", on the data pipeline's 4 x
+    1024 batches: run A without a mesh, run B through ``make_host_mesh()``'s
+    (1, 1) NCCL mesh in the placements ``launch.train.build`` gives
+    (``param_shardings``, ``state_shardings``, ``make_train_step(
+    grad_shardings=)``): the routed experts' grid over "model" and "data"
+    (``models.moe``). B's losses, final parameters and optimizer state must
+    equal A's to the bit, and each run must launch K1 2 x layers, K2a and
+    K2b layers times a step. Each row reports both runs' host step times
+    (around a synchronize) and one more step of each under torch.profiler
+    (its kernel-time sum), their differences B - A, the share of (token,
+    expert) assignments the capacity dropped, and peak memory. Returns the
+    mesh runs' launches, summed over the models."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import LanguageModel, moe
+    from repro_torch.models.base import count_params
+    from repro_torch.sharding.partition import device_put, param_shardings
+    from repro_torch.train import OptimConfig, init_opt_state, make_train_step
+    from repro_torch.train.optim import state_shardings
+
+    cuda = torch.device("cuda")
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    total = {c.__name__: 0 for c in counters}
+    pack, packed = moe._pack, []
+
+    def counted_pack(experts, cap, cfg):
+        # the dropped count stays on the card until the run has ended
+        grid_tok, cell_of = pack(experts, cap, cfg)
+        packed.append(((cell_of == cfg.n_experts * cap).sum(), cell_of.numel()))
+        return grid_tok, cell_of
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    free_memory()
+    mesh = make_host_mesh(model=1)
+    moe._pack = counted_pack
+    try:
+        for arch, layers, steps in MESH_MOE_RUNS:
+            t_start = time.perf_counter()
+            full_cfg = configs.get(arch)
+            cfg = dataclasses.replace(full_cfg, n_layers=layers)
+            opt_cfg = OptimConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps,
+                                  moment_dtype="bfloat16", master_weights=False,
+                                  stochastic_rounding=True)
+            per_step = {"flash_attention": 2 * layers, "flash_attention_bwd_dq": layers,
+                        "flash_attention_bwd_dkv": layers}
+            data = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+            # the steps' batches, and one more for the profiled step
+            batches = [_batch_at(data, i, slice(0, TRAIN_BATCH)) for i in range(steps + 1)]
+
+            def run(on_mesh: bool, want=None) -> tuple[dict, dict | None]:
+                free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                model = LanguageModel(cfg, impl="kernel", remat="full")
+                model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+                sh = param_shardings(model.axes(), model.specs(), mesh) if on_mesh else None
+                opt_state = init_opt_state(model.params, opt_cfg, grad_compression="bf16")
+                if on_mesh:
+                    model.load_params(device_put(model.params, sh))
+                    opt_state = device_put(opt_state, state_shardings(sh, opt_cfg, mesh))
+                step = make_train_step(model, opt_cfg, grad_compression="bf16", grad_shardings=sh)
+                at = mesh if on_mesh else None
+                packed.clear()
+                for c in counters:
+                    c.launches = 0
+                losses, step_ms = [], []
+                for i in range(steps):
+                    batch = to_device(batches[i], cuda, at)
+                    rng = torch.Generator(device="cuda").manual_seed(i)  # as launch.train seeds it
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, opt_state, metrics = step(model.params, opt_state, batch, rng)
+                    losses.append(float(metrics["loss"]))
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches = counts()
+                dropped = int(sum(int(d) for d, _ in packed))
+                assignments = sum(n for _, n in packed)
+                peak = torch.cuda.max_memory_allocated()
+                leaves = flat_leaves({"params": model.params, "opt": opt_state})
+                if on_mesh:
+                    plain = [k for k, v in leaves.items() if not isinstance(v, DTensor)]
+                    if plain:
+                        raise AssertionError(f"train_mesh_moe: {arch}: leaves not on the mesh: "
+                                             f"{plain}")
+                    # one leaf at a time, so that no second copy of the state
+                    # is on the card
+                    if list(leaves) != list(want):
+                        raise AssertionError(f"train_mesh_moe: {arch}: leaf names differ")
+                    for k, v in leaves.items():
+                        same_bits(f"train_mesh_moe: {arch}: the mesh run's state against the "
+                                  "run without a mesh", {k: v.full_tensor()}, {k: want[k]})
+                    state = None
+                else:
+                    state = {k: v.to("cpu", copy=True) for k, v in leaves.items()}
+                experts = model.params["layers"]["moe"]["w_gate"]
+                placed = ([str(p) for p in experts.placements]
+                          if isinstance(experts, DTensor) else None)
+                del leaves
+                batch = to_device(batches[steps], cuda, at)
+                rng = torch.Generator(device="cuda").manual_seed(steps)
+                profile = profile_step(lambda: step(model.params, opt_state, batch, rng))
+                out = {"losses": losses, "launches": launches, "step_ms_host": step_ms,
+                       "step_ms_host_median": statistics.median(step_ms[1:]),
+                       "step_ms_device": profile["device_ms"], "profile": profile,
+                       "dropped_assignments": [dropped, assignments],
+                       "dropped_share": dropped / assignments,
+                       "max_memory_allocated_bytes": peak, "w_gate_placements": placed,
+                       "n_params": count_params(model.specs())}
+                del model, opt_state, step, batch
+                free_memory()
+                return out, state
+
+            a, state_a = run(False)
+            b, _ = run(True, want=state_a)
+            del state_a
+            want = {k: v * steps for k, v in per_step.items()}
+            if a["launches"] != want or b["launches"] != want:
+                raise AssertionError(f"train_mesh_moe: {arch}: launch counts {b['launches']} "
+                                     f"(mesh), {a['launches']} (no mesh), expected {want} each")
+            if b["losses"] != a["losses"] or not all(math.isfinite(x) for x in a["losses"]):
+                raise AssertionError(f"train_mesh_moe: {arch}: losses through the mesh "
+                                     f"{b['losses']}, without {a['losses']}")
+            if b["dropped_assignments"] != a["dropped_assignments"]:
+                raise AssertionError(f"train_mesh_moe: {arch}: assignments dropped "
+                                     f"{b['dropped_assignments']} (mesh), "
+                                     f"{a['dropped_assignments']} (no mesh)")
+            for k in total:
+                total[k] += b["launches"][k]
+            row = {"phase": "train_mesh_moe", "arch": cfg.name, "n_layers": layers,
+                   "reduced": f"depth {layers} of {full_cfg.n_layers} layers"
+                              + (f" ({cfg.first_k_dense} dense-FFN, "
+                                 f"{layers - cfg.first_k_dense} MoE)" if cfg.first_k_dense
+                                 else "") + "; full width",
+                   "n_params": a["n_params"], "dtype": "bfloat16", "impl": "kernel",
+                   "remat": "full",
+                   "recipe": {"source": "TRAIN_LARGE_MSM (src/repro/core/msm.py:82-90)",
+                              "moment_dtype": opt_cfg.moment_dtype,
+                              "master_weights": opt_cfg.master_weights,
+                              "stochastic_rounding": opt_cfg.stochastic_rounding,
+                              "grad_compression": "bf16", "microbatches": 1},
+                   "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads,
+                             "D": (cfg.head_dim + cfg.rope_head_dim) if cfg.use_mla
+                             else cfg.head_dim},
+                   "experts": {"E": cfg.n_experts, "top_k": cfg.top_k,
+                               "shared": cfg.n_shared_experts,
+                               "capacity_factor": cfg.capacity_factor},
+                   "mesh": {"shape": list(mesh.shape), "dim_names": list(mesh.mesh_dim_names),
+                            "backend": dist.get_backend(),
+                            "w_gate_placements": b["w_gate_placements"]},
+                   "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": steps,
+                   "losses": a["losses"], "losses_bit_identical": True,
+                   "state_bit_identical": True,
+                   "dropped_assignments": a["dropped_assignments"],
+                   "dropped_share": a["dropped_share"],
+                   "launches_per_step": per_step, "launches": b["launches"],
+                   "launches_no_mesh": a["launches"],
+                   "no_mesh": {k: a[k] for k in ("step_ms_host", "step_ms_host_median",
+                                                 "step_ms_device", "profile",
+                                                 "max_memory_allocated_bytes")},
+                   "mesh_run": {k: b[k] for k in ("step_ms_host", "step_ms_host_median",
+                                                  "step_ms_device", "profile",
+                                                  "max_memory_allocated_bytes")},
+                   "step_ms_device_from": "torch.profiler kernel-time sum of one more step",
+                   "mesh_minus_no_mesh_ms": {
+                       "host_median": b["step_ms_host_median"] - a["step_ms_host_median"],
+                       "device": b["step_ms_device"] - a["step_ms_device"]},
+                   "phase_s": time.perf_counter() - t_start}
+            emit(row)
+    finally:
+        moe._pack = pack
+    dist.destroy_process_group()
+    free_memory()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2858,7 +3075,7 @@ def main() -> int:
     for row in phase_occupancy(cfg, mla):
         emit(row)
     fa, fd, fd_more, fa_models = phase_checks(cfg, hybrid, configs.get(LONG_ARCH), vlm, moe, mla)
-    fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH), mla)
+    fa_train, bwd, fa_more, bwd_more = phase_train_checks(cfg, configs.get(WIDE_ARCH), mla, moe)
     audio = configs.get(AUDIO_ARCH)
     fam = phase_family_checks(audio, hybrid)
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
@@ -2874,6 +3091,7 @@ def main() -> int:
     train_hybrid_launches = phase_train_hybrid(hybrid)
     train_ckpt_launches = phase_train_ckpt(cfg)
     train_mesh_launches = phase_train_mesh(cfg)
+    train_mesh_moe_launches = phase_train_mesh_moe(configs)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -2906,7 +3124,8 @@ def main() -> int:
                 "train_audio": train_audio_launches.get(name, 0),
                 "train_hybrid": train_hybrid_launches.get(name, 0),
                 "train_ckpt": train_ckpt_launches.get(name, 0),
-                "train_mesh": train_mesh_launches.get(name, 0)}
+                "train_mesh": train_mesh_launches.get(name, 0),
+                "train_mesh_moe": train_mesh_moe_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

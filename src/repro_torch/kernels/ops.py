@@ -127,7 +127,7 @@ def flash_decode_op(q, k, v, kv_len, *, scale=None):
     integer tensor on q's device; int32 on the card) -> (B,H,D). Forward
     only: the decode path runs under ``no_grad``."""
     refuse_dtensor("flash_decode", "serving through a mesh and the sequence-sharded "
-                   "cache's partial-softmax combine are items 13b and 14", q, k, v)
+                   "cache's partial-softmax combine are item 14's", q, k, v)
     if q.is_cuda:
         return flash_decode(q, k, v, kv_len, scale=scale)
     _check_decode(q, k, v, kv_len)
@@ -140,8 +140,8 @@ def ssd_scan_op(x, dt, A, b_, c_):
     device: the reference has no backward for this kernel, so inputs that
     require grad are refused; ``models.ssm.ssd_chunked`` is the
     differentiable path."""
-    refuse_dtensor("ssd_scan", "SSM serving and training through a mesh wait for items 13b "
-                   "and 14", x, dt, A, b_, c_)
+    refuse_dtensor("ssd_scan", "SSM training through a mesh is item 13c's, SSM serving "
+                   "through a mesh item 14's", x, dt, A, b_, c_)
     if x.is_cuda:
         return ssd_scan(*(a.contiguous() for a in (x, dt, A, b_, c_)))
     _check_ssd(x, dt, A, b_, c_)
@@ -152,7 +152,7 @@ def ssd_scan_op(x, dt, A, b_, c_):
 def fused_ffn_op(x, w_gate, w_up, w_down):
     """x (T,D), w_gate/w_up (D,F), w_down (F,D) -> (T,D). Forward only, as
     in the reference: the wrapper refuses inputs that require grad."""
-    refuse_dtensor("fused_ffn", "serving through a mesh waits for items 13b and 14",
+    refuse_dtensor("fused_ffn", "serving through a mesh is item 14's",
                    x, w_gate, w_up, w_down)
     if x.is_cuda:
         return fused_ffn(x.contiguous(), w_gate, w_up, w_down)

@@ -64,16 +64,17 @@ def moe_block_specs(cfg: ModelConfig, dense_ffn: bool) -> Specs:
 
 
 def moe_block(params, cfg: ModelConfig, x, positions, impl="kernel", fused=False):
-    """Returns (x, aux_loss): a dense-FFN layer's aux is 0."""
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    h = attention(params["attn"], cfg, h, positions, impl=impl)
-    x = x + h
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    """Returns (x, aux_loss): a dense-FFN layer's aux is 0. Under a mesh the
+    stream is sequence-parallel around the attention and the FFN (dense or
+    routed), as in ``dense_block``."""
+    h = sp_gather(rmsnorm(params["ln1"], x, cfg.norm_eps))
+    x = x + sp_boundary(attention(params["attn"], cfg, h, positions, impl=impl))
+    h = sp_gather(rmsnorm(params["ln2"], x, cfg.norm_eps))
     if "ffn" in params:
-        return (x + ffn(params["ffn"], h, fused=fused),
+        return (x + sp_boundary(ffn(params["ffn"], h, fused=fused)),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     y, aux = moe_mod.moe_ffn(params["moe"], cfg, h, fused=fused)
-    return x + y, aux
+    return x + sp_boundary(y), aux
 
 
 # ---- SSM (Mamba-2) -----------------------------------------------------------------

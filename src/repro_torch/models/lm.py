@@ -32,11 +32,12 @@ model trains with K1/K2 attention beside the naive scan (``scan="naive"``,
 as ``launch/train`` builds it). ``fused_ffn=True`` runs every SwiGLU MLP
 but the routed experts through K4 (forward only).
 
-The dense family (``dense``, ``vlm``) also trains through a device mesh:
-parameters and batch as ``DTensor``s (``sharding.partition``), the residual
-stream sequence-parallel between blocks (``sp_boundary``), attention on each
-rank's shards (``kernels.ops``). The other families through a mesh are item
-13b's.
+The dense family (``dense``, ``vlm``) and the ``moe`` family also train
+through a device mesh: parameters and batch as ``DTensor``s
+(``sharding.partition``), the residual stream sequence-parallel between
+blocks (``sp_boundary``), attention on each rank's shards
+(``kernels.ops``), the routed experts over "model" (``models.moe``). The
+``ssm`` and ``hybrid`` families through a mesh are item 13c's.
 """
 from __future__ import annotations
 
@@ -226,7 +227,8 @@ class LanguageModel(nn.Module):
 
         if cfg.family == "moe":
             def moe_body(x_, p_):
-                return blocks.moe_block(p_, cfg, x_, positions, impl=self.impl,
+                # the sequence-parallel residual boundary, as in the dense branch
+                return blocks.moe_block(p_, cfg, sp_boundary(x_), positions, impl=self.impl,
                                         fused=self.fused_ffn)
 
             for key, _, n in _layer_groups(cfg):

@@ -196,25 +196,32 @@ def device_put(tree, shardings):
     return distribute_tensor(leaf, shardings.mesh, target)
 
 
-def constrain(x, *entries):
-    """The reference's best-effort ``with_sharding_constraint`` inside model
-    code. ``entries`` are mesh-axis names, tuples of names, or None per dim.
-    Axes not in the tensor's mesh, or not dividing the dim, degrade to None.
-    A ``DTensor`` is redistributed to the result (unless every entry
-    degraded); any other tensor comes back unchanged."""
-    if not isinstance(x, DTensor):
-        return x
-    sizes = mesh_sizes(x.device_mesh)
+def fit(shape, entries, mesh) -> Spec:
+    """``entries`` (a mesh-axis name, a tuple of names or None per dim of
+    ``shape``) as a spec on ``mesh``: axes not in the mesh, or whose sizes
+    do not divide the dim, degrade to None, as the reference's
+    ``constrain`` degrades them."""
+    sizes = mesh_sizes(mesh)
     resolved = []
-    for dim, e in zip(x.shape, entries):
-        if e is None:
-            resolved.append(None)
-            continue
-        axes = tuple(a for a in ((e,) if isinstance(e, str) else tuple(e)) if a in sizes)
+    for dim, e in zip(shape, entries):
+        axes = () if e is None else tuple(
+            a for a in ((e,) if isinstance(e, str) else tuple(e)) if a in sizes)
         prod = 1
         for a in axes:
             prod *= sizes[a]
         resolved.append(axes if axes and dim % prod == 0 else None)
+    return tuple(resolved)
+
+
+def constrain(x, *entries):
+    """The reference's best-effort ``with_sharding_constraint`` inside model
+    code. ``entries`` are mesh-axis names, tuples of names, or None per dim,
+    fitted to the tensor's mesh (``fit``). A ``DTensor`` is redistributed to
+    the result (unless every entry degraded); any other tensor comes back
+    unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    resolved = fit(x.shape, entries, x.device_mesh)
     if all(e is None for e in resolved):
         return x
     target = placements(resolved, x.device_mesh)

@@ -4,16 +4,19 @@ rules and against the port's own unsharded step.
 
 The rules are pure functions of shapes and mesh sizes, so both sides are
 held on stand-in meshes of the sizes alone. Multi-rank runs are CPU
-``gloo`` processes started by one ``subprocess.run`` each, their ranks
-meeting through a ``FileStore`` under the test's ``tmp_path``: no process
-group is started in the test process and no port is opened."""
+``gloo`` processes started by ``run_ranks``, each rank in a session of its
+own with its output in files of its own, meeting through a ``FileStore``
+under the test's ``tmp_path``: no process group is started in the test
+process and no port is opened."""
 import functools
 import json
 import os
 import pathlib
+import signal
 import subprocess
 import sys
 import textwrap
+import time
 import types
 
 import jax.numpy as jnp
@@ -152,49 +155,60 @@ def test_constrain_leaves_a_plain_tensor_as_it_is():
 # --- multi-rank runs ---------------------------------------------------------------
 
 RANKS_TIMEOUT = 240
+# a collective that waits longer raises on its rank (gloo's default is 30 min)
+COLLECTIVE_TIMEOUT = RANKS_TIMEOUT - 60
 
-# starts ``world`` ranks of a script and waits for them; a rank that fails or
-# the deadline stops them all
-LAUNCH = textwrap.dedent(f"""
-    import subprocess, sys, time
-    world, store, script, args = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4:]
-    ranks = [subprocess.Popen([sys.executable, "-c", script, str(r), str(world), store, *args])
-             for r in range(world)]
-    deadline = time.monotonic() + {RANKS_TIMEOUT}
-    try:
-        while any(p.poll() is None for p in ranks) and time.monotonic() < deadline:
-            if any(p.poll() not in (None, 0) for p in ranks):
-                break
-            time.sleep(0.05)
-    finally:
-        for p in ranks:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    sys.exit(max(1 if p.returncode else 0 for p in ranks))
-""")
-
-# every rank's first lines: one thread, the group from the launcher's FileStore
-RANK = textwrap.dedent("""
-    import json, sys
+# every rank's first lines: one thread, the group from the FileStore of its run
+RANK = textwrap.dedent(f"""
+    import datetime, json, sys
     import torch
     import torch.distributed as dist
     rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     args = sys.argv[4:]
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds={COLLECTIVE_TIMEOUT}))
 """)
 
 
-def run_ranks(tmp_path, world: int, body: str, *args) -> subprocess.CompletedProcess:
-    store = tmp_path / f"store_{world}_{len(list(tmp_path.iterdir()))}"
-    out = subprocess.run([sys.executable, "-c", LAUNCH, str(world), str(store),
-                          RANK + textwrap.dedent(body), *map(str, args)],
-                         capture_output=True, text=True, timeout=RANKS_TIMEOUT + 60, cwd=ROOT,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-5000:]
-    return out
+def run_ranks(tmp_path, world: int, body: str, *args) -> list[str]:
+    """Runs ``world`` ranks of ``RANK + body`` and returns each rank's
+    standard output, in rank order. Each rank writes its output to files of
+    its own (no two ranks share a pipe, so no line of one rank lands inside
+    another's) and runs in a process group of its own; a rank that fails, or
+    the deadline, kills every rank's group, so no rank outlives the call."""
+    run = tmp_path / f"ranks_{world}_{len(list(tmp_path.iterdir()))}"
+    run.mkdir()
+    script = RANK + textwrap.dedent(body)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ranks, files = [], []
+    deadline = time.monotonic() + RANKS_TIMEOUT
+    try:
+        for r in range(world):
+            out, err = open(run / f"rank{r}.out", "w"), open(run / f"rank{r}.err", "w")
+            files += [out, err]
+            ranks.append(subprocess.Popen(
+                [sys.executable, "-c", script, str(r), str(world), str(run / "store"),
+                 *map(str, args)], stdin=subprocess.DEVNULL, stdout=out, stderr=err, cwd=ROOT,
+                env=env, start_new_session=True))
+        while (any(p.poll() is None for p in ranks) and time.monotonic() < deadline
+               and not any(p.poll() not in (None, 0) for p in ranks)):
+            time.sleep(0.05)
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        for f in files:
+            f.close()
+    outs = [(run / f"rank{r}.out").read_text() for r in range(world)]
+    failed = [(r, p.returncode) for r, p in enumerate(ranks) if p.returncode]
+    assert not failed, (f"ranks (rank, exit code) {failed}, deadline {RANKS_TIMEOUT} s\n"
+                        + "".join(f"--- rank {r}\n{outs[r][-2000:]}"
+                                  f"{(run / f'rank{r}.err').read_text()[-4000:]}"
+                                  for r, _ in failed))
+    return outs
 
 
 # --- a 4-rank (2, 2) mesh: the train step against the unsharded port's -------------
@@ -396,7 +410,7 @@ def mesh_2x2(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_2x2")
     out = str(tmp / "out.npz")
     stdout = run_ranks(tmp, 4, textwrap.dedent(TRAIN_2X2) + ELASTIC + DONE, STEPS, BATCH, SEQ,
-                       json.dumps(OPT), out, tmp / "elastic").stdout
+                       json.dumps(OPT), out, tmp / "elastic")[0]
     with open(out + ".json") as f:
         result = json.load(f)
     result["elastic"] = {"ckpt_dir": tmp / "elastic", "runs": {r["run"]: r for r in runs(stdout)}}
@@ -501,35 +515,42 @@ def test_attention_with_kv_heads_replicated_over_model(mesh_2x2, heads):
                                    atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("name", ["flash_decode", "ssd_scan", "fused_ffn",
-                                  "stochastic_rounding"])
+# what each refusal names: the ROADMAP item that brings the path, or the recipe
+REFUSAL_REASONS = {"flash_decode": ["item 14"], "ssd_scan": ["item 13c", "item 14"],
+                   "fused_ffn": ["item 14"], "stochastic_rounding": ["master_weights=True"]}
+
+
+@pytest.mark.parametrize("name", list(REFUSAL_REASONS))
 def test_what_a_mesh_refuses_raises_with_its_reason(mesh_2x2, name):
     reason = mesh_2x2[0]["refused"][name]
     assert reason is not None
-    assert ("item 13b" in reason or "items 13b" in reason) if name != "stochastic_rounding" \
-        else "master_weights=True" in reason
+    assert all(why in reason for why in REFUSAL_REASONS[name]), reason
 
 
 # --- the trainer through a mesh: a one-rank CLI run, and a reshard on restore -------
 
-CLI_ARGS = ["--arch", "tinyllama-1.1b-smoke", "--steps", "1", "--global-batch", "2",
-            "--seq-len", "288", "--log-every", "100"]
+def cli_args(arch: str) -> list[str]:
+    return ["--arch", arch, "--steps", "1", "--global-batch", "2", "--seq-len", "288",
+            "--log-every", "100"]
 
 
-def test_one_rank_mesh_trains_to_the_bits_of_no_mesh(tmp_path):
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b-smoke", "qwen3-moe-235b-a22b-smoke"])
+def test_one_rank_mesh_trains_to_the_bits_of_no_mesh(tmp_path, arch):
     """``launch.train --mesh-model 1`` in a process of its own starts its own
     one-rank group (``make_host_mesh``), trains through the (1, 1) mesh and
     saves from it; the checkpoint equals, leaf for leaf and to the bit, the
-    state of the same run without a mesh."""
+    state of the same run without a mesh: the dense family, and the MoE
+    family with its experts on the mesh."""
     d = tmp_path / "ck"
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS,
+    args = cli_args(arch)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args,
                           "--mesh-model", "1", "--device", "cpu", "--ckpt-dir", str(d),
                           "--save-every", "100"],
                          capture_output=True, text=True, timeout=300, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr[-3000:]
     assert "done at step 1" in out.stdout
-    st = ttrain.main([*CLI_ARGS, "--device", "cpu"])
+    st = ttrain.main([*args, "--device", "cpu"])
     _, tree, extra = restore(str(d), device="cpu")
     assert extra == {"step": 1}
     want = {"params": st.params, "opt": st.opt_state}
@@ -544,12 +565,12 @@ def test_one_rank_mesh_trains_to_the_bits_of_no_mesh(tmp_path):
 def two_ranks(mesh_2x2, tmp_path_factory):
     """One 2-rank run: both elastic runs of ``mesh_2x2`` resumed from step 10
     to 15 (the restore reshards onto the smaller mesh), then ``RESTART``.
-    Returns its stdout and the restart's checkpoint directory."""
+    Returns each rank's stdout and the restart's checkpoint directory."""
     tmp = tmp_path_factory.mktemp("two_ranks")
     body = ("elastic_steps, elastic_dir = 15, args[0]\n" + ELASTIC
             + "restart_dir = args[1]\n" + RESTART + DONE)
-    out = run_ranks(tmp, 2, body, mesh_2x2[0]["elastic"]["ckpt_dir"], tmp / "restart")
-    return out.stdout, tmp / "restart"
+    outs = run_ranks(tmp, 2, body, mesh_2x2[0]["elastic"]["ckpt_dir"], tmp / "restart")
+    return outs, tmp / "restart"
 
 
 def elastic_against_unsharded(mesh_2x2, two_ranks, monkeypatch, tag: str):
@@ -560,7 +581,7 @@ def elastic_against_unsharded(mesh_2x2, two_ranks, monkeypatch, tag: str):
     unsharded {"params", "opt"})``."""
     first = mesh_2x2[0]["elastic"]["runs"][tag]
     assert (first["step"], first["restarts"]) == (10, 0)
-    stdout = two_ranks[0]
+    stdout = two_ranks[0][0]            # rank 0's: it prints the runs' results
     d = mesh_2x2[0]["elastic"]["ckpt_dir"] / tag
     assert f"restored step 10 from {d}" in stdout
     second = [r for r in runs(stdout) if r["run"] == tag]
@@ -634,11 +655,11 @@ def test_restart_on_two_ranks_restores_one_step_on_every_rank(two_ranks):
     rank that writes) is still writing it: each rank waits for that write
     and restores the step rank 0 reads, step 2, and both finish at step 4
     after one restart with the same losses."""
-    stdout, d = two_ranks
-    restored = [line for line in stdout.splitlines()
+    outs, d = two_ranks
+    restored = [line for out in outs for line in out.splitlines()
                 if "restored step" in line and str(d) in line]
-    assert restored == [f"[train] restored step 2 from {d}"] * 2, stdout[-3000:]
-    results = [r for r in runs(stdout) if r["run"] == "restart"]
+    assert restored == [f"[train] restored step 2 from {d}"] * 2, [o[-3000:] for o in outs]
+    results = [r for out in outs for r in runs(out) if r["run"] == "restart"]
     assert sorted(r["rank"] for r in results) == [0, 1]
     for r in results:
         assert (r["step"], r["restarts"], len(r["losses"])) == (4, 1, 2)
