@@ -194,10 +194,23 @@ Phases, one JSON object a line:
            model and run: host step times, one more profiled step, B - A,
            the share of (token, expert) assignments the capacity dropped,
            peak memory
+  train_mesh_ssm  the hybrid and ssm families at full size through
+           launch.train's runner (TRAIN_MSM, remat "full", impl="kernel",
+           the naive scan, 4 x 1024 pipeline batches, 3 steps):
+           zamba2-1.2b (38 Mamba-2 blocks, 6 shared-block calls) and
+           mamba2-1.3b (48 blocks, state 128), each without a mesh (A) and
+           with --mesh-model 1 (B), every Mamba-2 mixer on the rank's rows
+           with its weights gathered. B's losses, final parameters and
+           optimizer state equal A's to the bit, every leaf of B a DTensor;
+           K1 2 x 6, K2a 6, K2b 6 a step (zamba2-1.2b) and none
+           (mamba2-1.3b), K4 and K5 none, in each run; per model and run:
+           host step times, one more profiled step, B - A, the first step
+           beyond the median (B's over A's: sharding propagation), peak
+           memory
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
            serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh,
-           train_mesh_moe), error, time, plain time, bound and the library
+           train_mesh_moe, train_mesh_ssm), error, time, plain time, bound and the library
            call's time; K1 and K2 also at S=4096, D=128, MLA's and the
            GQA-MoE's training shapes and the family paths' four shapes, K1 also at the two D=128 models' and the MLA
            model's prefill, K3 with its plan and at its seven other timed shapes
@@ -317,6 +330,10 @@ MESH_STEPS = 4
 # 1 of its 94 layers (3.73 B parameters, ~30 GB of parameters, gradients and
 # bf16 moments), deepseek-v2-236b at its dense layer and one MoE layer (5.36 B)
 MESH_MOE_RUNS = ((MOE_ARCH, 1, 3), (MLA_ARCH, MLA_TRAIN_LAYERS, 2))
+# train_mesh_ssm: (arch, steps) of the hybrid and ssm families at full size,
+# without a mesh and through a (1, 1) mesh: zamba2-1.2b (38 Mamba-2 blocks, 6
+# shared-block calls) and mamba2-1.3b (48 Mamba-2 blocks, state 128)
+MESH_SSM_RUNS = ((HYBRID_ARCH, 3), ("mamba2-1.3b", 3))
 
 
 def emit(obj) -> None:
@@ -2676,6 +2693,54 @@ def phase_train_ckpt(cfg) -> dict:
     return launches
 
 
+def trainer_run(arch: str, steps: int, mesh_model, counters) -> tuple:
+    """``launch.train``'s runner as its ``main`` builds it (TRAIN_MSM: bf16
+    parameters, fp32 master weights and moments; remat "full",
+    impl="kernel", TRAIN_BATCH x TRAIN_SEQ batches from the data pipeline),
+    ``steps`` steps on the card, with ``--mesh-model mesh_model`` unless
+    that is None; ``counters`` (kernel wrappers) set to 0 just before.
+    Returns (the final RunState, the counters' launches, each step's host
+    ms around a synchronize, make_host_mesh's seconds or None). The state's
+    ``untimed_step_fn`` is the step function itself."""
+    from repro_torch.launch import train as ttrain
+
+    argv = ["--arch", arch, "--steps", str(steps), "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
+    argv += [] if mesh_model is None else ["--mesh-model", str(mesh_model)]
+    runner = ttrain.make_runner(ttrain.parse_args(argv), torch.device("cuda"))
+    build, make_mesh, step_ms, mesh_s = runner.build_state, runner.mesh_factory, [], []
+
+    def mesh_factory():
+        t0 = time.perf_counter()
+        mesh = make_mesh()
+        mesh_s.append(time.perf_counter() - t0)
+        return mesh
+
+    def build_state(mesh, restore_step):
+        st = build(mesh, restore_step)
+        step_fn = st.step_fn
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        st.step_fn, st.untimed_step_fn = timed, step_fn
+        return st
+
+    runner.mesh_factory, runner.build_state = mesh_factory, build_state
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    st = runner.run(steps)
+    torch.cuda.synchronize()
+    return (st, {c.__name__: c.launches for c in counters}, step_ms,
+            mesh_s[0] if mesh_model else None)
+
+
 def phase_train_mesh(cfg) -> dict:
     """tinyllama-1.1b at full size through ``launch.train``'s runner twice,
     as ``main`` builds it (TRAIN_MSM: bf16 parameters, fp32 master weights
@@ -2713,41 +2778,9 @@ def phase_train_mesh(cfg) -> dict:
         return {c.__name__: c.launches for c in counters}
 
     def run(mesh_model):
-        argv = ["--arch", cfg.name, "--steps", str(MESH_STEPS), "--global-batch",
-                str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
-        argv += [] if mesh_model is None else ["--mesh-model", str(mesh_model)]
-        runner = ttrain.make_runner(ttrain.parse_args(argv), cuda)
-        build, make_mesh, step_ms, mesh_s = runner.build_state, runner.mesh_factory, [], []
-
-        def mesh_factory():
-            t0 = time.perf_counter()
-            mesh = make_mesh()
-            mesh_s.append(time.perf_counter() - t0)
-            return mesh
-
-        def build_state(mesh, restore_step):
-            st = build(mesh, restore_step)
-            step_fn = st.step_fn
-
-            def timed(*args):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = step_fn(*args)
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                return out
-
-            st.step_fn, st.untimed_step_fn = timed, step_fn
-            return st
-
-        runner.mesh_factory, runner.build_state = mesh_factory, build_state
-        torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
-        st = runner.run(MESH_STEPS)
-        torch.cuda.synchronize()
+        st, launches, step_ms, mesh_s = trainer_run(cfg.name, MESH_STEPS, mesh_model, counters)
         batch = ttrain.to_device(first, cuda, st.mesh if mesh_model is not None else None)
-        return st, counts(), step_ms, batch, (mesh_s[0] if mesh_model else None)
+        return st, launches, step_ms, batch, mesh_s
 
     def profile(st, batch):
         """One more step, of the run's final state, under torch.profiler."""
@@ -3022,6 +3055,134 @@ def phase_train_mesh_moe(configs) -> dict:
     return total
 
 
+def phase_train_mesh_ssm(configs) -> dict:
+    """The ssm and hybrid families at full size through ``launch.train``'s
+    runner (``trainer_run``: TRAIN_MSM, remat "full", impl="kernel" beside
+    the naive scan, the pipeline's 4 x 1024 batches), MESH_SSM_RUNS: run A
+    without a mesh, run B with ``--mesh-model 1``, a (1, 1) NCCL mesh from
+    ``make_host_mesh()``, where every Mamba-2 mixer runs on the rank's rows
+    with its weights gathered (``models.ssm``) and the shared block's
+    attention on local shards. B's losses, final parameters and optimizer
+    state must equal A's to the bit (A's held on the card meanwhile: its
+    bytes are taken off B's peak), every leaf of B a DTensor, and each run
+    must launch K1 2 x, K2a and K2b once per shared-block call a step
+    (zamba2-1.2b: 6 calls; mamba2-1.3b: none) and K4 and K5 never.
+    Each row reports both runs' host step times (around a synchronize), one
+    more step of each under torch.profiler (its kernel-time sum), B - A,
+    each run's first step beyond its median (B's extra over A's: DTensor's
+    sharding propagation) and peak memory. Returns the mesh runs' launches,
+    summed over the models."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.base import count_params
+    from repro_torch.models.lm import LanguageModel
+
+    cuda = torch.device("cuda")
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv, fused_ffn,
+                ssd_scan)
+    total = {c.__name__: 0 for c in counters}
+    for arch, steps in MESH_SSM_RUNS:
+        t_start = time.perf_counter()
+        cfg = configs.get(arch)
+        calls = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        per_step = {"flash_attention": 2 * calls, "flash_attention_bwd_dq": calls,
+                    "flash_attention_bwd_dkv": calls, "fused_ffn": 0, "ssd_scan": 0}
+        # the profiled step's batch: the one after the run's last
+        extra = _batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0), steps,
+                          slice(0, TRAIN_BATCH))
+
+        def run(mesh_model, want=None) -> tuple[dict, dict | None]:
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            # A's final state, which B is held against, stays on the card
+            held = sum(v.numel() * v.element_size() for v in (want or {}).values())
+            st, launches, step_ms, mesh_s = trainer_run(arch, steps, mesh_model, counters)
+            peak = torch.cuda.max_memory_allocated() - held
+            leaves = flat_leaves({"params": st.params, "opt": st.opt_state})
+            if mesh_model is None:
+                state = {k: v.clone() for k, v in leaves.items()}
+            else:
+                plain = [k for k, v in leaves.items() if not isinstance(v, DTensor)]
+                if plain:
+                    raise AssertionError(f"train_mesh_ssm: {arch}: leaves not on the mesh: "
+                                         f"{plain}")
+                if list(leaves) != list(want):
+                    raise AssertionError(f"train_mesh_ssm: {arch}: leaf names differ")
+                for k, v in leaves.items():
+                    same_bits(f"train_mesh_ssm: {arch}: the mesh run's state against the run "
+                              "without a mesh", {k: v.full_tensor()}, {k: want[k]})
+                state = None
+            in_proj = st.params["layers"]["mixer"]["in_proj"]
+            placed = ([str(p) for p in in_proj.placements]
+                      if isinstance(in_proj, DTensor) else None)
+            shape = list(st.mesh.shape) if mesh_model is not None else None
+            del leaves
+            batch = to_device(extra, cuda, st.mesh if mesh_model is not None else None)
+            profile = profile_step(lambda: st.untimed_step_fn(st.params, st.opt_state, batch,
+                                                              None))
+            median = statistics.median(step_ms[1:])
+            out = {"losses": list(st.final_losses), "launches": launches,
+                   "step_ms_host": step_ms, "step_ms_host_median": median,
+                   "first_step_extra_ms": step_ms[0] - median,
+                   "step_ms_device": profile["device_ms"], "profile": profile,
+                   "max_memory_allocated_bytes": peak, "held_state_bytes": held,
+                   "make_host_mesh_s": mesh_s,
+                   "mesh_shape": shape, "in_proj_placements": placed}
+            del st, batch
+            free_memory()
+            return out, state
+
+        a, state_a = run(None)
+        b, _ = run(1, want=state_a)
+        del state_a
+        want = {k: v * steps for k, v in per_step.items()}
+        if a["launches"] != want or b["launches"] != want:
+            raise AssertionError(f"train_mesh_ssm: {arch}: launch counts {b['launches']} "
+                                 f"(mesh), {a['launches']} (no mesh), expected {want} each")
+        if b["losses"] != a["losses"] or not all(math.isfinite(x) for x in a["losses"]):
+            raise AssertionError(f"train_mesh_ssm: {arch}: losses through the mesh "
+                                 f"{b['losses']}, without {a['losses']}")
+        for k in total:
+            total[k] += b["launches"][k]
+        keys = ("step_ms_host", "step_ms_host_median", "first_step_extra_ms", "step_ms_device",
+                "profile", "max_memory_allocated_bytes", "held_state_bytes")
+        row = {"phase": "train_mesh_ssm", "arch": arch, "family": cfg.family,
+               "n_layers": cfg.n_layers, "reduced": "none: full width and depth",
+               "shared_block_calls": calls,
+               "n_params": count_params(LanguageModel(cfg).specs()), "dtype": "bfloat16",
+               "impl": "kernel", "scan": "naive", "remat": "full",
+               "recipe": {"source": "TRAIN_MSM (src/repro/core/msm.py)", "master_weights": True,
+                          "moment_dtype": "float32"},
+               "ssm": {"heads": cfg.ssm_heads, "head_dim": cfg.ssm_head_dim,
+                       "state": cfg.ssm_state, "chunk": cfg.ssm_chunk},
+               "mesh": {"shape": b["mesh_shape"], "dim_names": ["data", "model"],
+                        "backend": dist.get_backend(), "make_host_mesh_s": b["make_host_mesh_s"],
+                        "in_proj_placements": b["in_proj_placements"]},
+               "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": steps,
+               "losses": a["losses"], "losses_bit_identical": True, "state_bit_identical": True,
+               "launches_per_step": per_step, "launches": b["launches"],
+               "launches_no_mesh": a["launches"],
+               "no_mesh": {k: a[k] for k in keys}, "mesh_run": {k: b[k] for k in keys},
+               "step_ms_device_from": "torch.profiler kernel-time sum of one more step",
+               "mesh_minus_no_mesh_ms": {
+                   "host_median": b["step_ms_host_median"] - a["step_ms_host_median"],
+                   "device": b["step_ms_device"] - a["step_ms_device"],
+                   "first_step_extra": b["first_step_extra_ms"] - a["first_step_extra_ms"]},
+               "phase_s": time.perf_counter() - t_start}
+        emit(row)
+    dist.destroy_process_group()
+    free_memory()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3092,6 +3253,7 @@ def main() -> int:
     train_ckpt_launches = phase_train_ckpt(cfg)
     train_mesh_launches = phase_train_mesh(cfg)
     train_mesh_moe_launches = phase_train_mesh_moe(configs)
+    train_mesh_ssm_launches = phase_train_mesh_ssm(configs)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -3125,7 +3287,8 @@ def main() -> int:
                 "train_hybrid": train_hybrid_launches.get(name, 0),
                 "train_ckpt": train_ckpt_launches.get(name, 0),
                 "train_mesh": train_mesh_launches.get(name, 0),
-                "train_mesh_moe": train_mesh_moe_launches.get(name, 0)}
+                "train_mesh_moe": train_mesh_moe_launches.get(name, 0),
+                "train_mesh_ssm": train_mesh_ssm_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

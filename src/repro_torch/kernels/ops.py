@@ -6,7 +6,8 @@ Under a device mesh the kernels take local shards: ``flash_attention_op``
 given ``DTensor``s runs its forward and backward (K1, K2a/K2b) on each
 rank's shard through ``local_map``, batch over "data" and heads over
 "model" (``attention_on_local_shards``). The serving and SSM kernels (K3,
-K4, K5) refuse a ``DTensor``.
+K4, K5) refuse a ``DTensor``: serving through a mesh is item 14's, and a
+Mamba-2 layer trains through a mesh on the naive scan (``models.ssm``).
 """
 from __future__ import annotations
 
@@ -134,14 +135,17 @@ def flash_decode_op(q, k, v, kv_len, *, scale=None):
     return flash_decode_plain(q, k, v, kv_len, scale=scale)
 
 
+# what K5 on a mesh waits for: training takes the naive scan (K5 is forward only)
+SSD_SCAN_WAITS_FOR = "SSM serving through a mesh is item 14's"
+
+
 def ssd_scan_op(x, dt, A, b_, c_):
     """x (B,S,H,P), dt (B,S,H), A (H,), b_/c_ (B,S,N) -> (y (B,S,H,P),
     final state (B,H,P,N) fp32), from a zero state. Forward only, on either
     device: the reference has no backward for this kernel, so inputs that
     require grad are refused; ``models.ssm.ssd_chunked`` is the
     differentiable path."""
-    refuse_dtensor("ssd_scan", "SSM training through a mesh is item 13c's, SSM serving "
-                   "through a mesh item 14's", x, dt, A, b_, c_)
+    refuse_dtensor("ssd_scan", SSD_SCAN_WAITS_FOR, x, dt, A, b_, c_)
     if x.is_cuda:
         return ssd_scan(*(a.contiguous() for a in (x, dt, A, b_, c_)))
     _check_ssd(x, dt, A, b_, c_)

@@ -31,11 +31,12 @@ reference's placements: parameters and optimizer state as
 them, each rank reading the rows of its coordinate on "data". One process
 starts its own one-rank group; several ranks are started by ``torchrun``
 (or by a launcher that starts the group). A restore reshards onto the
-mesh at hand, whatever mesh saved the checkpoint. The dense families
-(``dense``, ``vlm``) and ``moe`` (GQA-MoE and MLA-MoE, the routed experts
-over "model"); the ``ssm`` and ``hybrid`` families through a mesh are item
-13c's, and the encoder-decoder (``audio``) has no batch here either way.
-Without ``--mesh-model`` nothing is distributed: one device, plain tensors.
+mesh at hand, whatever mesh saved the checkpoint. Every family that trains
+here takes it: the dense families (``dense``, ``vlm``), ``moe`` (GQA-MoE
+and MLA-MoE, the routed experts over "model"), ``ssm`` and ``hybrid`` (the
+Mamba-2 mixer on each rank's rows, its weights gathered for the compute);
+the encoder-decoder (``audio``) has no batch here either way. Without
+``--mesh-model`` nothing is distributed: one device, plain tensors.
 """
 from __future__ import annotations
 
@@ -60,7 +61,6 @@ from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import state_shardings
 
 DEFAULT_REMAT = "full"      # the reference's training policy (TRAIN_MSM)
-MESH_FAMILIES = ("dense", "vlm", "moe")     # what --mesh-model trains
 
 
 def build(args, mesh, restore_step=None):
@@ -150,10 +150,6 @@ def make_runner(args: argparse.Namespace, device: torch.device) -> ElasticRunner
                          "train.make_train_step on a batch that holds them")
 
     sharded = args.mesh_model is not None
-    family = configs.get(args.arch).family
-    if sharded and family not in MESH_FAMILIES:
-        raise SystemExit(f"{args.arch}: --mesh-model trains the {', '.join(MESH_FAMILIES)} "
-                         f"families; the {family} family through a mesh is item 13c's")
 
     def mesh_factory():
         return make_host_mesh(model=args.mesh_model, device=device) if sharded else device

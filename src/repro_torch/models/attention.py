@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import P, Specs
 from repro_torch.models.layers import apply_rope
+from repro_torch.sharding.partition import constrain, mesh_sizes
 
 NEG_INF = -1e30
 IMPLS = ("naive", "kernel")
@@ -108,8 +109,13 @@ def gqa_project_qkv(params, cfg: ModelConfig, x, positions):
     # parameters' dtype (lm.py:_forward_audio, as the reference casts them)
     x = x.to(torch.promote_types(x.dtype, params["wq"].dtype))
     q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    k, v = x @ params["wk"], x @ params["wv"]
+    if isinstance(k, DTensor) and kvh % mesh_sizes(k.device_mesh).get("model", 1):
+        # KVH * D may shard over "model" where KVH does not: no rank could
+        # unflatten its columns into whole heads, so k and v come
+        # "model"-replicated, as attention_on_local_shards reads such heads
+        k, v = (constrain(t, ("pod", "data"), None, None) for t in (k, v))
+    k, v = k.reshape(b, s, kvh, hd), v.reshape(b, s, kvh, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

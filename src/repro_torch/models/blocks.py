@@ -84,9 +84,12 @@ def mamba_block_specs(cfg: ModelConfig) -> Specs:
 
 
 def mamba_block(params, cfg: ModelConfig, x, scan="kernel"):
-    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    """Under a mesh the stream is sequence-parallel around the mixer, as in
+    ``dense_block``: the mixer takes the whole sequence (its conv and scan
+    run along it) and its output goes back to the stream's layout."""
+    h = sp_gather(rmsnorm(params["ln"], x, cfg.norm_eps))
     y, _ = ssm_mod.mamba2_forward(params["mixer"], cfg, h, scan=scan)
-    return x + y
+    return x + sp_boundary(y)
 
 
 def mamba_block_decode(params, cfg: ModelConfig, x, conv_state, ssm_state):
@@ -108,11 +111,12 @@ def shared_attn_block_specs(cfg: ModelConfig) -> Specs:
 
 
 def shared_attn_block(params, cfg: ModelConfig, x, positions, impl="kernel", fused=False):
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    h = attn.gqa_attention(params["attn"], cfg, h, positions, impl=impl)
-    x = x + h
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + ffn(params["ffn"], h, fused=fused)
+    """Sequence-parallel under a mesh around the attention and the FFN, as
+    ``dense_block``."""
+    h = sp_gather(rmsnorm(params["ln1"], x, cfg.norm_eps))
+    x = x + sp_boundary(attn.gqa_attention(params["attn"], cfg, h, positions, impl=impl))
+    h = sp_gather(rmsnorm(params["ln2"], x, cfg.norm_eps))
+    return x + sp_boundary(ffn(params["ffn"], h, fused=fused))
 
 
 # ---- encoder/decoder (Whisper backbone) ------------------------------------------------

@@ -6,10 +6,11 @@ Pure functions over param dicts (see ``models.base``). Weights are stored
 Under a device mesh the weights and activations are ``DTensor``s, and
 DTensor's sharding rules carry the norms, RoPE and the products. Two ops
 take their weight replicated (``Replicate()`` on every mesh dim) and run on
-each rank's rows instead (``_on_rows``): the embedding gather, whose vocab
+each rank's rows instead (``on_rows``): the embedding gather, whose vocab
 shards over "model", and the chunked cross-entropy (the vocab projection,
 its gold-logit gather and the per-chunk recompute), so that each rank runs
-the very ops of the single-device path on its rows.
+the very ops of the single-device path on its rows. ``models.ssm`` runs
+the Mamba-2 mixer so too, with all of its weights replicated.
 """
 from __future__ import annotations
 
@@ -101,26 +102,48 @@ def embedding_specs(vocab: int, d: int, tied: bool) -> Specs:
     return s
 
 
-def _on_rows(fn, weight, *rows, out_rows=True):
-    """``fn(weight, *rows)`` on each rank's rows of ``DTensor`` inputs: the
-    weight replicated, each (B, ...) ``rows`` tensor split over "data" by
-    its batch where that divides (replicated otherwise) and replicated over
-    "model". The weight's gradient is a partial sum over "data" where the
-    rows are split. ``out_rows``: the outputs are rows too; else they are
-    sums over the rows (partial over "data")."""
-    mesh = weight.device_mesh
+def _leaves(tree) -> list:
+    """The leaves of one tensor or a nested dict of them, in key order."""
+    return [t for v in tree.values() for t in _leaves(v)] if hasattr(tree, "keys") else [tree]
+
+
+def _rebuild(like, leaves):
+    """``leaves`` in the shape of ``like`` (one tensor or a nested dict)."""
+    it = iter(leaves)
+
+    def walk(node):
+        return {k: walk(v) for k, v in node.items()} if hasattr(node, "keys") else next(it)
+
+    return walk(like)
+
+
+def on_rows(fn, weights, *rows, out_rows=True, n_out=1):
+    """``fn(weights, *rows)`` on each rank's rows of ``DTensor`` inputs:
+    ``weights`` (one tensor, or a nested dict of them) replicated, each
+    (B, ...) ``rows`` tensor split over "data" by its batch where that
+    divides (replicated otherwise) and replicated over "model". Each
+    weight's gradient is a partial sum over "data" where the rows are
+    split. ``fn`` returns ``n_out`` tensors (one, or a tuple): rows too
+    where ``out_rows``, else sums over the rows (partial over "data")."""
+    flat = _leaves(weights)
+    n = len(flat)
+    mesh = flat[0].device_mesh
     sizes = mesh_sizes(mesh)
     split = "data" in sizes and rows[0].shape[0] % sizes["data"] == 0
 
     def layout(kind):
         return role_placements(mesh, kind if split else None)
 
-    rows = tuple(replicate_like(r, weight) for r in rows)
+    def local(*args):
+        return fn(_rebuild(weights, args[:n]), *args[n:])
+
+    rows = tuple(replicate_like(r, flat[0]) for r in rows)
     out = layout(Shard(0) if out_rows else Partial())
-    return local_map(fn, out_placements=out if out_rows else (out, out),
-                     in_placements=(role_placements(mesh),) + (layout(Shard(0)),) * len(rows),
-                     in_grad_placements=(layout(Partial()),) + (layout(Shard(0)),) * len(rows),
-                     device_mesh=mesh, redistribute_inputs=True)(weight, *rows)
+    return local_map(local, out_placements=out if n_out == 1 else (out,) * n_out,
+                     in_placements=(role_placements(mesh),) * n + (layout(Shard(0)),) * len(rows),
+                     in_grad_placements=(layout(Partial()),) * n
+                     + (layout(Shard(0)),) * len(rows),
+                     device_mesh=mesh, redistribute_inputs=True)(*flat, *rows)
 
 
 def _gather_rows(w, tokens):
@@ -130,7 +153,7 @@ def _gather_rows(w, tokens):
 def embed(params, tokens):
     w = params["embedding"]
     if isinstance(w, DTensor):
-        return _on_rows(_gather_rows, w, tokens)
+        return on_rows(_gather_rows, w, tokens)
     return _gather_rows(w, tokens)
 
 
@@ -179,8 +202,8 @@ def chunked_cross_entropy(params, h, labels, chunk: int = 512, mask=None):
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
     mask = mask.float()
     if isinstance(w, DTensor):
-        total, count = _on_rows(lambda w_, *r: _loss_sums(w_, *r, chunk=chunk), w, h, labels,
-                                mask, out_rows=False)
+        total, count = on_rows(lambda w_, *r: _loss_sums(w_, *r, chunk=chunk), w, h, labels,
+                               mask, out_rows=False, n_out=2)
         # sums over "data": the loss is one number on every rank (``float``
         # of a partial sum would read this rank's share)
         whole = role_placements(w.device_mesh)

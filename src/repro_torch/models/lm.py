@@ -32,12 +32,12 @@ model trains with K1/K2 attention beside the naive scan (``scan="naive"``,
 as ``launch/train`` builds it). ``fused_ffn=True`` runs every SwiGLU MLP
 but the routed experts through K4 (forward only).
 
-The dense family (``dense``, ``vlm``) and the ``moe`` family also train
-through a device mesh: parameters and batch as ``DTensor``s
-(``sharding.partition``), the residual stream sequence-parallel between
-blocks (``sp_boundary``), attention on each rank's shards
-(``kernels.ops``), the routed experts over "model" (``models.moe``). The
-``ssm`` and ``hybrid`` families through a mesh are item 13c's.
+Every family but ``audio`` also trains through a device mesh: parameters
+and batch as ``DTensor``s (``sharding.partition``), the residual stream
+sequence-parallel between blocks (``sp_boundary``), attention on each
+rank's shards (``kernels.ops``), the routed experts over "model"
+(``models.moe``), the Mamba-2 mixer on each rank's rows with its weights
+replicated (``models.ssm``; the naive scan: K5 refuses a mesh).
 """
 from __future__ import annotations
 
@@ -245,12 +245,15 @@ class LanguageModel(nn.Module):
                 return blocks.dense_block(p_, cfg, sp_boundary(x_), positions,
                                           impl=self.impl, fused=self.fused_ffn)
         else:
+            # the reference's boundaries around each Mamba-2 block and each
+            # call of the shared block (its lm.py:137-161)
             def body(x_, p_):
-                return blocks.mamba_block(p_, cfg, x_, scan=self.scan)
+                return sp_boundary(blocks.mamba_block(p_, cfg, sp_boundary(x_), scan=self.scan))
 
             def shared(x_, p_):
-                return blocks.shared_attn_block(p_, cfg, x_, positions, impl=self.impl,
-                                                fused=self.fused_ffn)
+                return sp_boundary(blocks.shared_attn_block(p_, cfg, x_, positions,
+                                                            impl=self.impl,
+                                                            fused=self.fused_ffn))
 
         for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
             x = _maybe_remat(body, self.remat, x, p)

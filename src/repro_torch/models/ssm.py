@@ -14,16 +14,25 @@ by ``scan`` (``LanguageModel``'s own choice, apart from attention's
 
 Decode keeps O(1)-in-sequence state: (conv window, SSM state), updated in
 place in the caller's cache.
+
+Under a device mesh (a ``DTensor`` input) the mixer runs on each rank's
+batch rows with every one of its weights replicated (``layers.on_rows``):
+the conv and the scan read the whole sequence, and ``in_proj``'s
+``[z | x | B | C | dt]`` column slices cut across its shards over "model".
+The weights stay stored in their placements ("ff" over "model", "embed"
+over "data"), and their gradients are partial sums over "data".
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.base import P, Specs
+from repro_torch.models.layers import on_rows
 
 SCANS = ("naive", "kernel")
 
@@ -92,9 +101,26 @@ def _gated_out(params, cfg: ModelConfig, y, z, out_dtype):
 def mamba2_forward(params, cfg: ModelConfig, x, chunk: int | None = None, scan: str = "naive"):
     """Full Mamba-2 mixer over (B,S,d). Returns (y, (conv_state, ssm_state)).
     ``scan="naive"`` scans with ``ssd_chunked`` (chunk ``cfg.ssm_chunk``),
-    ``scan="kernel"`` with K5 (its own chunk length)."""
+    ``scan="kernel"`` with K5 (its own chunk length). A ``DTensor`` ``x``
+    runs on each rank's rows (see the module's note), with the naive scan
+    only: K5 through a mesh refuses, as ``kernels.ops.ssd_scan_op`` does."""
     if scan not in SCANS:
         raise ValueError(f"scan {scan!r} not one of {SCANS}")
+    if isinstance(x, DTensor):
+        if scan == "kernel":
+            kops.refuse_dtensor("ssd_scan", kops.SSD_SCAN_WAITS_FOR, x)
+
+        def local(params_, x_):
+            y, (conv_state, ssm_state) = _mamba2(params_, cfg, x_, chunk, scan)
+            return y, conv_state, ssm_state
+
+        y, conv_state, ssm_state = on_rows(local, params, x, n_out=3)
+        return y, (conv_state, ssm_state)
+    return _mamba2(params, cfg, x, chunk, scan)
+
+
+def _mamba2(params, cfg: ModelConfig, x, chunk, scan):
+    """``mamba2_forward`` on plain tensors."""
     di, h, p, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     zxbcdt = x @ params["in_proj"]
     z, xin, b_, c_, dt = _split_proj(cfg, zxbcdt)

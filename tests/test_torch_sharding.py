@@ -516,7 +516,7 @@ def test_attention_with_kv_heads_replicated_over_model(mesh_2x2, heads):
 
 
 # what each refusal names: the ROADMAP item that brings the path, or the recipe
-REFUSAL_REASONS = {"flash_decode": ["item 14"], "ssd_scan": ["item 13c", "item 14"],
+REFUSAL_REASONS = {"flash_decode": ["item 14"], "ssd_scan": ["item 14"],
                    "fused_ffn": ["item 14"], "stochastic_rounding": ["master_weights=True"]}
 
 
@@ -534,13 +534,15 @@ def cli_args(arch: str) -> list[str]:
             "--log-every", "100"]
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b-smoke", "qwen3-moe-235b-a22b-smoke"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b-smoke", "qwen3-moe-235b-a22b-smoke",
+                                  "zamba2-1.2b-smoke", "mamba2-1.3b-smoke"])
 def test_one_rank_mesh_trains_to_the_bits_of_no_mesh(tmp_path, arch):
     """``launch.train --mesh-model 1`` in a process of its own starts its own
     one-rank group (``make_host_mesh``), trains through the (1, 1) mesh and
     saves from it; the checkpoint equals, leaf for leaf and to the bit, the
-    state of the same run without a mesh: the dense family, and the MoE
-    family with its experts on the mesh."""
+    state of the same run without a mesh: the dense family, the MoE family
+    with its experts on the mesh, and the hybrid and SSM families with
+    their Mamba-2 mixers on each rank's rows."""
     d = tmp_path / "ck"
     args = cli_args(arch)
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args,

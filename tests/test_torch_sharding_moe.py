@@ -314,14 +314,12 @@ def test_trainer_trains_mla_moe_through_the_mesh(moe_2x2, monkeypatch):
     np.testing.assert_allclose(trainer["losses"], losses, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("arch,why", [("zamba2-1.2b-smoke", "item 13c"),
-                                      ("mamba2-1.3b-smoke", "item 13c"),
-                                      ("whisper-base-smoke", "no 'frames'")])
+@pytest.mark.parametrize("arch,why", [("whisper-base-smoke", "no 'frames'")])
 def test_mesh_model_refuses_the_other_families(arch, why):
-    """``--mesh-model`` refuses the ssm and hybrid families, naming the item
-    that brings them through a mesh, and the encoder-decoder, whose batch
-    the data pipeline cannot make, with that reason; before any process
-    group is started."""
+    """``--mesh-model`` refuses the encoder-decoder, whose batch the data
+    pipeline cannot make, with that reason, before any process group is
+    started; it takes every other family (the ssm and hybrid families in
+    ``tests/test_torch_sharding_ssm.py``)."""
     args = ttrain.parse_args(["--arch", arch, "--steps", "1", "--mesh-model", "1",
                               "--device", "cpu"])
     with pytest.raises(SystemExit, match=why):
