@@ -207,10 +207,23 @@ Phases, one JSON object a line:
            host step times, one more profiled step, B - A, the first step
            beyond the median (B's over A's: sharding propagation), peak
            memory
+  pipeline  GPipe (distributed.pipeline.pipeline_apply) through a one-stage
+           NCCL "pipe" mesh from make_compat_mesh((1,), ("pipe",)) (one card:
+           S = 1, bubble 0, no point-to-point op; S > 1 runs on gloo only):
+           the reference test's case (M = 8 microbatches of 2 x 16, one
+           tanh(x @ w_s) layer, fp32) within 1e-5 (forward) and 1e-4
+           (gradients) of the sequential loop; then tinyllama-1.1b's 22
+           dense blocks at full width as the one stage, 4 microbatches of 1
+           x 1024 bf16 hidden states, forward and backward against the same
+           blocks applied microbatch by microbatch: output and x's gradient
+           equal to the bit, each layer gradient equal to the bit or within
+           2^-7 by relative norm; K1 2 x 88, K2a 88, K2b 88 pipelined (88
+           each in the loop); host and profiled device ms of a step of each,
+           peak memory
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
            serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh,
-           train_mesh_moe, train_mesh_ssm), error, time, plain time, bound and the library
+           train_mesh_moe, train_mesh_ssm, pipeline), error, time, plain time, bound and the library
            call's time; K1 and K2 also at S=4096, D=128, MLA's and the
            GQA-MoE's training shapes and the family paths' four shapes, K1 also at the two D=128 models' and the MLA
            model's prefill, K3 with its plan and at its seven other timed shapes
@@ -334,6 +347,20 @@ MESH_MOE_RUNS = ((MOE_ARCH, 1, 3), (MLA_ARCH, MLA_TRAIN_LAYERS, 2))
 # without a mesh and through a (1, 1) mesh: zamba2-1.2b (38 Mamba-2 blocks, 6
 # shared-block calls) and mamba2-1.3b (48 Mamba-2 blocks, state 128)
 MESH_SSM_RUNS = ((HYBRID_ARCH, 3), ("mamba2-1.3b", 3))
+# pipeline: GPipe through a one-stage NCCL "pipe" mesh (one card, one rank).
+# (a) the reference test's case (tests/test_pipeline.py): M = 8 microbatches
+# of 2 x 16, one tanh(x @ w_s) layer a stage, fp32, held to the sequential
+# loop at its limits (forward, gradients). (b) tinyllama-1.1b's 22 dense
+# blocks as the one stage, M = PIPE_MICROBATCHES microbatches of 1 x
+# PIPE_SEQ positions of bf16 hidden states, against the same block applied
+# microbatch by microbatch; a gradient whose sum over the microbatches runs
+# in another order than the loop's is held by relative norm at
+# PIPE_GRAD_RTOL, two bf16 roundings (2^-8) of the sum of 4 microbatches;
+# each step timed PIPE_REPEATS times on the host clock
+PIPE_CASE = (8, 2, 16)
+PIPE_FWD_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
+PIPE_MICROBATCHES, PIPE_SEQ, PIPE_REPEATS = 4, 1024, 4
+PIPE_GRAD_RTOL = 2 ** -7
 
 
 def emit(obj) -> None:
@@ -1833,8 +1860,13 @@ def profile_step(fn, top: int = 15, ranges: tuple = ()) -> dict:
     range's device time as ``range_device_ms`` reads it."""
     from torch.profiler import ProfilerActivity, profile
 
+    # the host's operators only where a range needs them: the device's own
+    # events give the same kernel sums, and reading a training step's host
+    # events as well takes about three times as long (8-16 s on an H100's host)
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if ranges
+                  else [ProfilerActivity.CUDA])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     # the device's own events (kernels, copies, memsets), not the host-side
@@ -3183,6 +3215,207 @@ def phase_train_mesh_ssm(configs) -> dict:
     return total
 
 
+def pipeline_case(mesh, device) -> dict:
+    """The reference test's case through ``pipeline_apply`` on ``mesh`` (its
+    "pipe" dim the stages) and through the sequential loop, fp32: the
+    largest absolute differences of y and of the gradients of (y ** 2).sum()
+    in w and x."""
+    from repro_torch.distributed.pipeline import pipeline_apply, stage_params_sharding
+    from repro_torch.sharding.partition import device_put
+
+    m, mb, d = PIPE_CASE
+    n = mesh.size(mesh.mesh_dim_names.index("pipe"))
+    gen = torch.Generator(device=device).manual_seed(11)
+    w = torch.randn(n, d, d, generator=gen, device=device) * 0.3
+    x = torch.randn(m, mb, d, generator=gen, device=device)
+    w_piped = device_put(w, stage_params_sharding(mesh)).requires_grad_()
+    x_piped = x.clone().requires_grad_()
+    y = pipeline_apply(lambda w_s, xb: torch.tanh(xb @ w_s), w_piped, x_piped, mesh=mesh)
+    (y ** 2).sum().backward()
+    y = y.detach()
+    w_loop, x_loop = w.clone().requires_grad_(), x.clone().requires_grad_()
+    y_loop = x_loop
+    for s in range(n):
+        y_loop = torch.tanh(y_loop @ w_loop[s])
+    (y_loop ** 2).sum().backward()
+    y_loop = y_loop.detach()
+    return {"stages": n, "microbatches": m, "microbatch_shape": [mb, d], "dtype": "float32",
+            "y_max_abs_err": float((y - y_loop).abs().max()),
+            "w_grad_max_abs_err": float((w_piped.grad.full_tensor() - w_loop.grad).abs().max()),
+            "x_grad_max_abs_err": float((x_piped.grad - x_loop.grad).abs().max())}
+
+
+def pipeline_and_loop(cfg, mesh, layers, x, dout):
+    """``cfg``'s dense blocks (the stacked ``layers``) as one stage of
+    ``pipeline_apply`` on ``mesh``, and the same block applied microbatch by
+    microbatch without the pipeline, on ``x`` (M, mb, S, d) with the output
+    cotangent ``dout``. Returns two step functions; each runs the forward
+    and the backward once and returns (y, x's gradient, the layers'
+    gradients by ``flat_leaves`` name)."""
+    from repro_torch.distributed.pipeline import pipeline_apply, stage_params_sharding
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import _unbind_layers
+    from repro_torch.sharding.partition import device_put
+    from repro_torch.train.optim import tree_leaves, tree_map, tree_unflatten
+
+    s = x.shape[2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(x.shape[1], s)
+
+    def block_fn(stage, h):
+        for p in _unbind_layers(stage, cfg.n_layers):
+            h = blocks.dense_block(p, cfg, h, positions, impl="kernel")
+        return h
+
+    stacked = tree_map(lambda v: v.detach().unsqueeze(0), layers)
+    piped = tree_map(lambda v: v.requires_grad_(),
+                     device_put(stacked, tree_map(lambda _: stage_params_sharding(mesh),
+                                                  stacked)))
+    loop = tree_map(lambda v: v.detach().requires_grad_(), layers)
+
+    def named(grads, like):
+        return flat_leaves(tree_unflatten(like, grads))
+
+    def piped_step():
+        xp = x.detach().requires_grad_()
+        y = pipeline_apply(block_fn, piped, xp, mesh=mesh)
+        dx, *grads = torch.autograd.grad(y, [xp, *tree_leaves(piped)], dout)
+        return y.detach(), dx, named([g.to_local()[0] for g in grads], piped)
+
+    def loop_step():
+        xl = x.detach().requires_grad_()
+        y = torch.stack([block_fn(loop, xl[i]) for i in range(x.shape[0])])
+        dx, *grads = torch.autograd.grad(y, [xl, *tree_leaves(loop)], dout)
+        return y.detach(), dx, named(grads, loop)
+
+    return piped_step, loop_step
+
+
+def phase_pipeline(cfg) -> dict:
+    """GPipe (``distributed.pipeline.pipeline_apply``) through a one-stage
+    "pipe" mesh from ``make_compat_mesh((1,), ("pipe",))``: NCCL on the one
+    card, S = 1, bubble 0. One card cannot run S > 1: NCCL's group has one
+    rank and takes no send to one's own rank, so the schedule posts no
+    point-to-point op here, and several stages have run only on gloo
+    (tests/test_torch_pipeline.py). (a) The reference test's case, held to
+    the sequential loop at its limits. (b) tinyllama-1.1b's 22 dense blocks
+    at full width as the one stage (impl="kernel"), PIPE_MICROBATCHES
+    microbatches of 1 x PIPE_SEQ seeded bf16 hidden states, forward and
+    backward against a seeded cotangent, against the same block applied
+    microbatch by microbatch: the output and x's gradient equal to the bit,
+    each layer gradient equal to the bit where its sum over the microbatches
+    runs in the loop's order, else within PIPE_GRAD_RTOL by relative norm;
+    K1 2 x 22 (forward and the backward's recompute), K2a and K2b 22 a
+    microbatch through the pipeline, K1, K2a and K2b 22 each in the loop;
+    host ms (PIPE_REPEATS in turns) and the profiler's device ms of a step
+    of each, and peak memory. Returns the pipelined run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.launch.mesh import make_compat_mesh
+    from repro_torch.models.lm import LanguageModel
+
+    t_start = time.perf_counter()
+    free_memory()
+    cuda = torch.device("cuda")
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    t0 = time.perf_counter()
+    mesh = make_compat_mesh((1,), ("pipe",))
+    mesh_s = time.perf_counter() - t0
+    case = pipeline_case(mesh, cuda)
+    if not (case["y_max_abs_err"] <= PIPE_FWD_TOL and case["w_grad_max_abs_err"] <= PIPE_GRAD_TOL
+            and case["x_grad_max_abs_err"] <= PIPE_GRAD_TOL):
+        raise AssertionError(f"pipeline: the reference test's case against the loop: {case}")
+
+    model = LanguageModel(cfg, impl="kernel")
+    model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape = (PIPE_MICROBATCHES, 1, PIPE_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    piped_step, loop_step = pipeline_and_loop(cfg, mesh, model.params["layers"], x, dout)
+
+    def counted(step):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = step()
+        torch.cuda.synchronize()
+        return out, {c.__name__: c.launches for c in counters}, torch.cuda.max_memory_allocated()
+
+    (y_p, dx_p, g_p), launches, peak_p = counted(piped_step)
+    held = sum(t.numel() * t.element_size() for t in (y_p, dx_p, *g_p.values()))
+    (y_l, dx_l, g_l), launches_loop, peak_l = counted(loop_step)
+    layers, m = cfg.n_layers, PIPE_MICROBATCHES
+    want = {"flash_attention": 2 * m * layers, "flash_attention_bwd_dq": m * layers,
+            "flash_attention_bwd_dkv": m * layers}
+    want_loop = {k: m * layers for k in want}
+    if launches != want or launches_loop != want_loop:
+        raise AssertionError(f"pipeline: launch counts {launches} (pipelined), "
+                             f"{launches_loop} (loop), expected {want} and {want_loop}")
+    if not (torch.isfinite(y_p).all() and torch.isfinite(dx_p).all()):
+        raise AssertionError("pipeline: non-finite output or x gradient")
+    same_bits("pipeline: output and x's gradient against the loop", {"y": y_p, "dx": dx_p},
+              {"y": y_l, "dx": dx_l})
+    if list(g_p) != list(g_l):
+        raise AssertionError(f"pipeline: gradient names differ: {sorted(set(g_p) ^ set(g_l))}")
+    grads = {}
+    for k, g in g_p.items():
+        equal = bool(torch.equal(g, g_l[k]))
+        grads[k] = {"bit_identical": equal, "rel_err": 0.0 if equal else rel_err(g, g_l[k])}
+        if not equal and not grads[k]["rel_err"] <= PIPE_GRAD_RTOL:
+            raise AssertionError(f"pipeline: gradient {k} against the loop: {grads[k]}")
+    del y_l, dx_l, g_l, y_p, dx_p, g_p
+
+    host = {"pipelined": [], "loop": []}
+    for _ in range(PIPE_REPEATS // 2):
+        for name, step in (("pipelined", piped_step), ("loop", loop_step),
+                           ("loop", loop_step), ("pipelined", piped_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    profiles = {name: profile_step(step) for name, step in
+                (("pipelined", piped_step), ("loop", loop_step))}
+    row = {"phase": "pipeline", "mesh": {"shape": list(mesh.shape),
+                                         "dim_names": list(mesh.mesh_dim_names),
+                                         "backend": dist.get_backend(), "make_compat_mesh_s": mesh_s},
+           "stages": 1, "bubble_fraction": bubble_fraction(1, m),
+           "one_card": "S = 1: NCCL's one rank takes no send to itself; S > 1 runs on gloo only",
+           "reference_case": {**case, "fwd_tol": PIPE_FWD_TOL, "grad_tol": PIPE_GRAD_TOL},
+           "arch": cfg.name, "n_layers": layers, "dtype": "bfloat16", "impl": "kernel",
+           "reduced": "none: full width and depth, the blocks only (no embedding, no head)",
+           "microbatches": m, "microbatch_shape": [1, PIPE_SEQ, cfg.d_model],
+           "output_bit_identical": True, "x_grad_bit_identical": True,
+           "grads_bit_identical": sum(v["bit_identical"] for v in grads.values()),
+           "grads": len(grads), "grad_rel_tol": PIPE_GRAD_RTOL,
+           "grads_max_rel_err": max(v["rel_err"] for v in grads.values()),
+           "grads_not_bit_identical": {k: v["rel_err"] for k, v in grads.items()
+                                       if not v["bit_identical"]},
+           "launches": launches, "launches_loop": launches_loop,
+           "step_ms_host": host,
+           "step_ms_host_median": {k: statistics.median(v) for k, v in host.items()},
+           "step_ms_device": {k: p["device_ms"] for k, p in profiles.items()},
+           "step_ms_device_from": "torch.profiler kernel-time sum of one more step",
+           "profile": profiles,
+           "max_memory_allocated_bytes": {"pipelined": peak_p, "loop": peak_l},
+           "loop_peak_holds_pipelined_results_bytes": held}
+    row["pipelined_minus_loop_ms"] = {
+        "host_median": row["step_ms_host_median"]["pipelined"]
+        - row["step_ms_host_median"]["loop"],
+        "device": row["step_ms_device"]["pipelined"] - row["step_ms_device"]["loop"]}
+    del model, piped_step, loop_step, x, dout
+    dist.destroy_process_group()
+    free_memory()
+    row["phase_s"] = time.perf_counter() - t_start
+    emit(row)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3254,6 +3487,7 @@ def main() -> int:
     train_mesh_launches = phase_train_mesh(cfg)
     train_mesh_moe_launches = phase_train_mesh_moe(configs)
     train_mesh_ssm_launches = phase_train_mesh_ssm(configs)
+    pipeline_launches = phase_pipeline(cfg)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -3288,7 +3522,8 @@ def main() -> int:
                 "train_ckpt": train_ckpt_launches.get(name, 0),
                 "train_mesh": train_mesh_launches.get(name, 0),
                 "train_mesh_moe": train_mesh_moe_launches.get(name, 0),
-                "train_mesh_ssm": train_mesh_ssm_launches.get(name, 0)}
+                "train_mesh_ssm": train_mesh_ssm_launches.get(name, 0),
+                "pipeline": pipeline_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

@@ -1,10 +1,12 @@
-"""Host mesh construction: the counterpart of the reference's
-``launch/mesh.py:make_host_mesh``, over ``torch.distributed``.
+"""Mesh construction: the counterpart of the reference's
+``launch/mesh.py:make_compat_mesh`` and ``make_host_mesh``, over
+``torch.distributed``.
 
-A FUNCTION, not a module-level constant: importing this module starts no
+FUNCTIONS, not module-level constants: importing this module starts no
 process group and touches no device.
 
-Where no default process group exists, ``make_host_mesh`` starts one:
+Where no default process group exists, ``make_compat_mesh`` (and so
+``make_host_mesh``) starts one:
 
 * under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment), from its
   environment;
@@ -18,6 +20,7 @@ of their own) starts the group itself before calling it.
 from __future__ import annotations
 
 import atexit
+import math
 import os
 import shutil
 import tempfile
@@ -57,17 +60,26 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def make_host_mesh(data: int | None = None, model: int = 1, device=None):
-    """A ``("data", "model")`` device mesh over every rank of the default
-    process group, started here where there is none; ``data`` defaults to
-    the world size over ``model``. ``device``: the card by default (an error
-    without one), ``"cpu"`` for a gloo mesh."""
+def make_compat_mesh(shape, axes, device=None):
+    """A device mesh of ``shape`` with the dim names ``axes`` (a one-axis
+    ``("pipe",)`` mesh, say) over every rank of the default process group,
+    started here where there is none. ``device``: the card by default (an
+    error without one), ``"cpu"`` for a gloo mesh."""
     device = resolve_device(device)
     if not dist.is_initialized():
         _start_group(device)
-    world = dist.get_world_size()
-    data = data or world // model
-    if data * model != world:
-        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks, "
+    shape, world = tuple(shape), dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
                          f"the process group has {world}")
-    return init_device_mesh(device.type, (data, model), mesh_dim_names=DIM_NAMES)
+    return init_device_mesh(device.type, shape, mesh_dim_names=tuple(axes))
+
+
+def make_host_mesh(data: int | None = None, model: int = 1, device=None):
+    """A ``("data", "model")`` device mesh over every rank of the default
+    process group, started here where there is none; ``data`` defaults to
+    the world size over ``model``. ``device``: as ``make_compat_mesh``'s."""
+    device = resolve_device(device)
+    if not dist.is_initialized():
+        _start_group(device)
+    return make_compat_mesh((data or dist.get_world_size() // model, model), DIM_NAMES, device)

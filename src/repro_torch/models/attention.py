@@ -91,6 +91,18 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "kernel", scale=None):
 # GQA attention module
 # --------------------------------------------------------------------------------
 
+def whole_heads(t, n_heads: int):
+    """A (B, S, n_heads * D) projection ready to unflatten into its heads.
+    Under a mesh, n_heads * D may shard over "model" where n_heads does not
+    (``resolve_spec`` reads only the flattened width): no rank could then
+    unflatten its columns into whole heads, so ``t`` comes back
+    "model"-replicated, as ``kernels.ops.attention_on_local_shards`` reads
+    such heads. Any other tensor comes back as it is."""
+    if isinstance(t, DTensor) and n_heads % mesh_sizes(t.device_mesh).get("model", 1):
+        return constrain(t, ("pod", "data"), None, None)
+    return t
+
+
 def gqa_specs(cfg: ModelConfig) -> Specs:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
@@ -108,14 +120,9 @@ def gqa_project_qkv(params, cfg: ModelConfig, x, positions):
     # whisper's first encoder block takes the frames in bf16 whatever the
     # parameters' dtype (lm.py:_forward_audio, as the reference casts them)
     x = x.to(torch.promote_types(x.dtype, params["wq"].dtype))
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k, v = x @ params["wk"], x @ params["wv"]
-    if isinstance(k, DTensor) and kvh % mesh_sizes(k.device_mesh).get("model", 1):
-        # KVH * D may shard over "model" where KVH does not: no rank could
-        # unflatten its columns into whole heads, so k and v come
-        # "model"-replicated, as attention_on_local_shards reads such heads
-        k, v = (constrain(t, ("pod", "data"), None, None) for t in (k, v))
-    k, v = k.reshape(b, s, kvh, hd), v.reshape(b, s, kvh, hd)
+    q = whole_heads(x @ params["wq"], h).reshape(b, s, h, hd)
+    k = whole_heads(x @ params["wk"], kvh).reshape(b, s, kvh, hd)
+    v = whole_heads(x @ params["wv"], kvh).reshape(b, s, kvh, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -192,7 +199,8 @@ def _mla_q(params, cfg: ModelConfig, x, positions):
     ``rope_head_dim`` lanes rotated; returned as (q_nope, q_rope)."""
     b, s, _ = x.shape
     hd, r = cfg.head_dim, cfg.rope_head_dim
-    q = ((x @ params["wq_a"]) @ params["wq_b"]).reshape(b, s, cfg.n_heads, hd + r)
+    q = whole_heads((x @ params["wq_a"]) @ params["wq_b"], cfg.n_heads)
+    q = q.reshape(b, s, cfg.n_heads, hd + r)
     return q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
 
 
@@ -212,8 +220,8 @@ def _mla_qkv(params, cfg: ModelConfig, x, positions, c_kv, k_rope):
     b, s_kv = c_kv.shape[:2]
     h, hd, r, vd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
-    k_nope = (c_kv @ params["wk_b"]).reshape(b, s_kv, h, hd)
-    v = (c_kv @ params["wv_b"]).reshape(b, s_kv, h, vd)
+    k_nope = whole_heads(c_kv @ params["wk_b"], h).reshape(b, s_kv, h, hd)
+    v = whole_heads(c_kv @ params["wv_b"], h).reshape(b, s_kv, h, vd)
     # the shared rope key broadcast across heads
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s_kv, h, r)], dim=-1)
     return torch.cat([q_nope, q_rope], dim=-1), k, v

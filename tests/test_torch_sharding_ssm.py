@@ -1,6 +1,6 @@
 """The Mamba-2 (``ssm``) and Zamba-2 (``hybrid``) families through a device
-mesh, and GQA on a mesh whose "model" size its KV heads do not divide,
-held against the port's unsharded step, the unsharded op and the
+mesh, and GQA and MLA on a mesh whose "model" size their heads do not
+divide, held against the port's unsharded step, the unsharded op and the
 reference.
 
 Under a mesh the Mamba-2 mixer runs on each rank's batch rows with all of
@@ -10,6 +10,7 @@ and the shared block. One 4-rank ``gloo`` launch
 (``test_torch_sharding.run_ranks``) builds a (2, 2) and then a (1, 4) mesh
 over the same ranks and computes everything the tests below read; each
 test process holds its own side against it."""
+import dataclasses
 import inspect
 import json
 import textwrap
@@ -43,8 +44,16 @@ STEPS, BATCH = 3, 4
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=STEPS)
 # the fault's case: granite-3-2b-smoke's 2 KV heads on 4 "model" ranks
 GQA_ARCH, GQA_BATCH = "granite-3-2b-smoke", 2
-# what the ranks' script takes from this module (besides ``global_batch``)
-SHARED = ("ARCHS", "MESHES", "SEQ", "STEPS", "BATCH", "OPT", "GQA_ARCH", "GQA_BATCH")
+# the query heads' case: 6 heads on 4 "model" ranks, whose 6 x 16 (GQA) and
+# 6 x (16 + 8) (MLA's q) columns shard over "model" where the heads cannot
+QUERY_HEADS = {"gqa": ("granite-3-2b-smoke", {"n_heads": 6}),
+               "mla": ("deepseek-v2-236b-smoke", {"n_heads": 6, "n_kv_heads": 6})}
+# held in float64: in fp32 the unsharded op's own rounding (2.7e-5 on MLA's
+# dwkv_a against float64) is larger than the 1e-5 the mesh is held to
+QUERY_HEADS_DTYPE = torch.float64
+# what the ranks' script takes from this module (besides the helpers below)
+SHARED = ("ARCHS", "MESHES", "SEQ", "STEPS", "BATCH", "OPT", "GQA_ARCH", "GQA_BATCH",
+          "QUERY_HEADS", "QUERY_HEADS_DTYPE")
 
 
 def global_batch(cfg, step: int) -> dict:
@@ -55,19 +64,38 @@ def global_batch(cfg, step: int) -> dict:
 def gqa_inputs(cfg):
     """The fault case's inputs: seeded fp32 attention weights, x (B,S,d),
     positions and the output's cotangent."""
-    params = init_params(gqa_specs(cfg), torch.Generator().manual_seed(3),
-                         dtype=torch.float32, device="cpu")
+    return attention_inputs(cfg, gqa_specs(cfg))
+
+
+def attention_inputs(cfg, specs, dtype=torch.float32):
+    """Seeded weights of ``specs``, x (B,S,d), positions and the output's
+    cotangent, in ``dtype``."""
+    params = init_params(specs, torch.Generator().manual_seed(3), dtype=dtype, device="cpu")
     gen = torch.Generator().manual_seed(4)
-    x = torch.randn(GQA_BATCH, SEQ, cfg.d_model, generator=gen)
-    dout = torch.randn(GQA_BATCH, SEQ, cfg.d_model, generator=gen)
+    x = torch.randn(GQA_BATCH, SEQ, cfg.d_model, generator=gen, dtype=dtype)
+    dout = torch.randn(GQA_BATCH, SEQ, cfg.d_model, generator=gen, dtype=dtype)
     positions = torch.arange(SEQ, dtype=torch.int32).expand(GQA_BATCH, SEQ)
     return params, x, positions, dout
 
 
+def query_heads_case(kind):
+    """A ``QUERY_HEADS`` case: its config, attention op and specs."""
+    import repro_torch.configs as configs
+    from repro_torch.models import attention
+
+    arch, changes = QUERY_HEADS[kind]
+    cfg = dataclasses.replace(configs.get(arch), **changes)
+    if kind == "mla":
+        return cfg, attention.mla_attention, attention.mla_specs(cfg)
+    return cfg, attention.gqa_attention, attention.gqa_specs(cfg)
+
+
 # every rank: the default group's 4 ranks as a (2, 2), then a (1, 4) mesh;
 # on each, both configs in fp32 for STEPS steps; then on (1, 4) the
-# granite attention whose 2 KV heads do not divide "model"
+# granite attention whose 2 KV heads do not divide "model", and the GQA and
+# MLA attentions whose 6 query heads do not
 SSM_MESHES = """
+    import dataclasses
     import numpy as np
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -123,21 +151,29 @@ SSM_MESHES = """
                                   opt["mu"]["layers"]["mixer"].items()}}
             arrays.update({f"{tag}/param__{i}": a for i, a in enumerate(full(model.params))})
 
+    def sharded_attention(tag, cfg, op, specs, dtype=torch.float32):
+        # forward and backward of op on the mesh in the reference's
+        # placements, its output and gradients under "{tag}/"
+        params, x, positions, dout = attention_inputs(cfg, specs, dtype)
+        params = {k: v.requires_grad_() for k, v in
+                  device_put(params, param_shardings(axes_tree(specs), specs, mesh)).items()}
+        dx = distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_()
+        out = op(params, cfg, dx, positions, impl="kernel")
+        out.backward(distribute_tensor(dout, mesh, out.placements))
+        arrays[f"{tag}/out"] = out.full_tensor().detach().numpy()
+        arrays[f"{tag}/dx"] = dx.grad.full_tensor().numpy()
+        arrays.update({f"{tag}/d{name}": p.grad.full_tensor().numpy()
+                       for name, p in params.items()})
+        return {name: named(p.placements) for name, p in params.items()}
+
     # the fault's case on the last mesh, (1, 4): KVH * D shards over "model"
     # where KVH does not
     cfg = configs.get(GQA_ARCH)
-    params, x, positions, dout = gqa_inputs(cfg)
-    specs = gqa_specs(cfg)
-    params = {k: v.requires_grad_() for k, v in
-              device_put(params, param_shardings(axes_tree(specs), specs, mesh)).items()}
-    rows = [Shard(0), Replicate()]
-    dx = distribute_tensor(x, mesh, rows).requires_grad_()
-    out = gqa_attention(params, cfg, dx, positions, impl="kernel")
-    out.backward(distribute_tensor(dout, mesh, out.placements))
-    arrays["gqa/out"] = out.full_tensor().detach().numpy()
-    arrays["gqa/dx"] = dx.grad.full_tensor().numpy()
-    arrays.update({f"gqa/d{name}": p.grad.full_tensor().numpy() for name, p in params.items()})
-    result["gqa_wk"] = named(params["wk"].placements)
+    result["gqa_wk"] = sharded_attention("gqa", cfg, gqa_attention, gqa_specs(cfg))["wk"]
+    # and the query heads' cases: H * D over "model" where H is not
+    for kind in QUERY_HEADS:
+        result[f"heads6_{kind}"] = sharded_attention(f"heads6_{kind}", *query_heads_case(kind),
+                                                     QUERY_HEADS_DTYPE)
     if rank == 0:
         np.savez(out_path, **arrays)
         with open(out_path + ".json", "w") as f:
@@ -157,13 +193,15 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def ssm_meshes(tmp_path_factory):
-    """The 4-rank run's results (a dict by ``{D}x{M}/{arch}``, and
-    ``gqa_wk``) and arrays (``{D}x{M}/{arch}/param__i`` in ``tree_leaves``
-    order, ``gqa/{out,dx,dwq,dwk,dwv,dwo}``)."""
+    """The 4-rank run's results (a dict by ``{D}x{M}/{arch}``, ``gqa_wk``
+    and ``heads6_{gqa,mla}``: each weight's placements) and arrays
+    (``{D}x{M}/{arch}/param__i`` in ``tree_leaves`` order,
+    ``gqa/{out,dx,dwq,dwk,dwv,dwo}``, ``heads6_{gqa,mla}/{out,dx,d<weight>}``)."""
     tmp = tmp_path_factory.mktemp("ssm_meshes")
     out = str(tmp / "out.npz")
     shared = "".join(f"{name} = {globals()[name]!r}\n" for name in SHARED)
-    helpers = inspect.getsource(global_batch) + inspect.getsource(gqa_inputs)
+    helpers = "".join(inspect.getsource(fn) for fn in (global_batch, gqa_inputs,
+                                                       attention_inputs, query_heads_case))
     run_ranks(tmp, 4, shared + helpers + textwrap.dedent(SSM_MESHES), out)
     with open(out + ".json") as f:
         result = json.load(f)
@@ -292,3 +330,29 @@ def test_gqa_with_kv_heads_that_do_not_divide_model(ssm_meshes):
     for name, w in want.items():
         np.testing.assert_allclose(arrays[f"gqa/{name}"], w.detach().numpy(), atol=1e-5,
                                    rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", sorted(QUERY_HEADS))
+def test_query_heads_that_do_not_divide_model(ssm_meshes, kind):
+    """GQA (granite-3-2b-smoke at 6 heads, 2 KV heads) and MLA
+    (deepseek-v2-236b-smoke at 6 heads) on a (1, 4) mesh in the reference's
+    placements: the query projection's 6 x 16 (GQA) or 6 x 24 (MLA's
+    ``wq_b``) columns and MLA's ``wk_b``/``wv_b`` shard over "model" where
+    the 6 heads cannot, and the forward and backward run, output and every
+    gradient within 1e-5 of the unsharded op (``QUERY_HEADS_DTYPE``)."""
+    result, arrays = ssm_meshes
+    cfg, op, specs = query_heads_case(kind)
+    split = {"gqa": ("wq",), "mla": ("wq_b", "wk_b", "wv_b")}[kind]
+    for name in split:        # over "model", the mesh's second dim
+        assert result[f"heads6_{kind}"][name][1] == "Shard(1)", name
+    params, x, positions, dout = attention_inputs(cfg, specs, QUERY_HEADS_DTYPE)
+    for p in (*params.values(), x):
+        p.requires_grad_()
+    out = op(params, cfg, x, positions, impl="kernel")
+    out.backward(dout)
+    want = {"out": out, "dx": x.grad, **{f"d{k}": p.grad for k, p in params.items()}}
+    assert sorted(f"heads6_{kind}/{name}" for name in want) == sorted(
+        k for k in arrays if k.startswith(f"heads6_{kind}/"))
+    for name, w in want.items():
+        np.testing.assert_allclose(arrays[f"heads6_{kind}/{name}"], w.detach().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=name)
