@@ -86,6 +86,16 @@ Phases, one JSON object a line:
            K2b once per layer and step), with the losses, step times (host
            clock, and one step replayed as a CUDA graph), tokens/s, MFU and
            peak memory
+  dryrun   launch.dryrun on meta tensors on the host (no kernel launched):
+           tinyllama-1.1b's four grid shapes on the 16 x 16 stand-in mesh
+           (three ok, long_500k skipped: the three roofline terms, the
+           dominant one, argument and peak bytes a device, fits), then the
+           train phase's own cell on a (1, 1) stand-in held against that
+           phase: its argument bytes equal to the parameters, optimizer state
+           and batch the phase held, exactly; the dry-run's peak beside the
+           step's max_memory_allocated, the roofline bound (core.hw.H100_SXM,
+           the denominator of every bound and MFU here) beside the step's
+           device time, and useful_flops_cell beside the row's model FLOPs
   serve_vlm  internvl2-26b at full width and depth (48 layers, d 6144, GQA at
            H=48 KVH=8 D=128), bf16, seeded random weights: the prefill step on
            4 x 512 prompts with 256 seeded patch embeddings (K1 48) and without
@@ -255,9 +265,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense rates)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.core.hw import H100_SXM  # noqa: E402  (the port's one source of peaks)
+
+# published peaks of one H100 SXM (NVIDIA data sheet, dense rates), the
+# denominators of every bound and MFU here
+HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
+PEAK_FLOPS = {torch.bfloat16: H100_SXM.bf16_tflops * 1e12,
+              torch.float32: H100_SXM.fp32_tflops * 1e12}
 # tolerances of the CPU tests: fp32 differs by summation order only, bf16
 # carries about three decimal digits
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -1958,12 +1972,13 @@ def param_paths(tree, prefix=""):
         yield from param_paths(v, f"{prefix}{k}.") if hasattr(v, "keys") else [prefix + k]
 
 
-def phase_train(cfg) -> dict:
+def phase_train(cfg) -> tuple[dict, dict]:
     """tinyllama-1.1b at full width and depth through ``train_family`` on one
     fixed TRAIN_BATCH x TRAIN_SEQ batch from the data pipeline (memorising it
     makes the loss fall): K1 twice a layer and step under remat "full", K2a
     and K2b once. The step's and the optimizer's device times are CUDA-graph
-    replays, as this row has always taken them."""
+    replays, as this row has always taken them. Returns the launches and the
+    row (``phase_dryrun`` reads its held bytes, peak, step time and FLOPs)."""
     from repro_torch.data.pipeline import DataConfig, DataLoader
     from repro_torch.launch.train import to_device
     from repro_torch.models import LanguageModel
@@ -1986,7 +2001,84 @@ def phase_train(cfg) -> dict:
                                  6 * n_matmul * tokens + attn_flops, graphed=True)
     row.update(n_layers=layers, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
     emit(row)
-    return launches
+    return launches, row
+
+
+def phase_dryrun(cfg, train_row: dict) -> None:
+    """The dry-run (``launch.dryrun``, on ``meta`` tensors on the host, no
+    kernel launched) and its yardstick against the card. (a) ``run_cell`` at
+    tinyllama-1.1b's four shapes on the 16 x 16 stand-in: 3 cells ok,
+    long_500k skipped, each with its three roofline terms, dominant term,
+    argument and peak bytes a device and ``fits``. (b) The ``train`` phase's
+    own cell (TRAIN_BATCH x TRAIN_SEQ, the TRAIN_MSM recipe, remat "full",
+    one microbatch) on a (1, 1) stand-in, against that phase's state on the
+    card: the argument bytes must equal the bytes of the parameters,
+    optimizer state and batch it held, exactly; the dry-run's peak beside
+    the step's ``max_memory_allocated``, the roofline's bound beside the
+    step's device time, and ``useful_flops_cell`` beside the row's model
+    FLOPs are printed."""
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.core import msm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import StandInMesh
+
+    t_start = time.perf_counter()
+    cells = []
+    for name in SHAPES:
+        res = dryrun.run_cell(cfg.name, name)
+        if res["status"] == "ok":
+            r = res["roofline"]
+            cells.append({key: res[key] for key in (
+                "shape", "mesh", "status", "step", "policy", "microbatches", "build_s",
+                "argument_bytes_per_device", "peak_memory_per_device", "fits",
+                "collective_bytes_per_device")}
+                | {key: r[key] for key in ("compute_s", "memory_s", "collective_s", "dominant",
+                                           "bound_s", "roofline_fraction")})
+        else:
+            cells.append({key: res.get(key) for key in ("shape", "mesh", "status", "reason")})
+    statuses = [c["status"] for c in cells]
+    if statuses != ["ok", "ok", "ok", "skipped"] or cells[-1]["shape"] != "long_500k":
+        raise AssertionError(f"dryrun: {cfg.name}'s four cells came back {statuses}, expected "
+                             "three ok and long_500k skipped")
+    cells_s = time.perf_counter() - t_start
+
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    policy = msm.compose("msm_train", microbatches=1)
+    res = dryrun.run_cell(cfg.name, shape, mesh=StandInMesh((1, 1)), policy=policy)
+    held = sum(train_row["held_bytes"].values())
+    if res["argument_bytes_per_device"] != held:
+        raise AssertionError(f"dryrun: argument bytes {res['argument_bytes_per_device']} != the "
+                             f"train phase's held bytes {held} ({train_row['held_bytes']})")
+    r = res["roofline"]
+    step_s = train_row["step_ms_device"] / 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    diff = res["useful_flops"] - train_row["model_flops_per_step"]
+    embedding = 6 * cfg.vocab_size * cfg.d_model * tokens
+    diagonal = 6 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * TRAIN_SEQ
+    emit({"phase": "dryrun", "arch": cfg.name, "cells": cells, "cells_s": cells_s,
+          "yardstick": {
+              "shape": dataclasses.asdict(shape), "mesh": res["mesh"], "policy": policy.name,
+              "argument_bytes": res["argument_bytes_per_device"], "held_bytes": held,
+              "held_bytes_by_part": train_row["held_bytes"], "argument_bytes_equal": True,
+              "peak_memory_dryrun": res["peak_memory_per_device"],
+              "max_memory_allocated": train_row["max_memory_allocated_bytes"],
+              "peak_ratio_dryrun_over_card": (res["peak_memory_per_device"]
+                                              / train_row["max_memory_allocated_bytes"]),
+              "flops_counted": res["flops_per_device"], "bytes_counted": res["bytes_per_device"],
+              "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+              "dominant": r["dominant"], "bound_s": r["bound_s"],
+              "step_s_device": step_s, "step_ms_device_from": train_row["step_ms_device_from"],
+              "roofline_fraction_reached": r["bound_s"] / step_s,
+              "useful_flops_cell": res["useful_flops"],
+              "train_model_flops": train_row["model_flops_per_step"],
+              "useful_minus_train": diff,
+              "useful_minus_train_parts": {
+                  "embedding (useful counts the embedding table as a product; train does not)":
+                      embedding,
+                  "attention diagonal (train counts the S causal pairs on it; useful halves S^2)":
+                      -diagonal,
+                  "rest": diff - embedding + diagonal}},
+          "phase_s": time.perf_counter() - t_start})
 
 
 def phase_train_mla(full_cfg) -> dict:
@@ -2186,8 +2278,8 @@ def phase_train_mla(full_cfg) -> dict:
            "device_idle_share": 1 - device_step_ms / host_ms,
            "tokens_per_s": tokens / (host_ms / 1e3),
            "model_flops_per_step": model_flops,
-           "mfu_host": model_flops / (host_ms / 1e3) / 989e12,
-           "mfu_device": model_flops / (device_step_ms / 1e3) / 989e12,
+           "mfu_host": model_flops / (host_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "mfu_device": model_flops / (device_step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
            "init_max_memory_allocated_bytes": init_peak,
            "grads_max_memory_allocated_bytes": grads_peak,
            "oracle_max_memory_allocated_bytes": oracle_peak,
@@ -2334,6 +2426,9 @@ def train_family(phase: str, cfg, batch: dict, per_step: dict, model_flops: floa
         optimizer_ms = profile_step(update, top=5)["device_ms"]
         ms_from = "torch.profiler kernel-time sum of one step"
     del grads
+    held_bytes = {"params": sum(t.nbytes for t in tree_leaves(model.params)),
+                  "opt_state": sum(t.nbytes for t in tree_leaves(opt_state)),
+                  "batch": sum(t.nbytes for t in batch.values())}
     host_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3     # median, first step excluded
     tokens = int(batch["tokens"].numel())
     row = {"phase": phase, "arch": cfg.name, "dtype": "bfloat16", "impl": "kernel",
@@ -2353,11 +2448,12 @@ def train_family(phase: str, cfg, batch: dict, per_step: dict, model_flops: floa
            "device_idle_share": 1 - device_step_ms / host_ms,
            "tokens_per_s": tokens / (host_ms / 1e3),          # the decoder's, for whisper
            "model_flops_per_step": model_flops,
-           "mfu_host": model_flops / (host_ms / 1e3) / 989e12,
-           "mfu_device": model_flops / (device_step_ms / 1e3) / 989e12,
+           "mfu_host": model_flops / (host_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "mfu_device": model_flops / (device_step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
            "oracle_max_memory_allocated_bytes": oracle_peak,
            "max_memory_allocated_bytes": peak_bytes,
-           "optimizer_device_ms": optimizer_ms, "profile": profile}
+           "optimizer_device_ms": optimizer_ms, "held_bytes": held_bytes,
+           "profile": profile}
     del model, naive, opt_state, step
     free_memory()
     return row, launches
@@ -3428,10 +3524,15 @@ def main() -> int:
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card = smi.splitlines()[0]
     nvcc = re.search(r"release ([\d.]+)", run_text([build.find_nvcc(), "--version"]))
+    props = torch.cuda.get_device_properties(0)
     emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.group(1) if nvcc else None,
           "triton": importlib.util.find_spec("triton") is not None,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0],
+          "total_memory": props.total_memory, "sms": props.multi_processor_count,
+          "spec": {"name": H100_SXM.name, "hbm_capacity": H100_SXM.hbm_capacity,
+                   "sms": H100_SXM.num_sms, "bf16_tflops": H100_SXM.bf16_tflops,
+                   "hbm_bandwidth": H100_SXM.hbm_bandwidth}})
 
     t0 = time.perf_counter()
     ptxas = build_with_report()
@@ -3475,7 +3576,8 @@ def main() -> int:
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
-    train_launches = phase_train(cfg)
+    train_launches, train_row = phase_train(cfg)
+    phase_dryrun(cfg, train_row)
     vlm_launches = phase_serve_vlm(vlm)
     moe_launches = phase_serve_routed("serve_moe", moe, MOE_LAYERS, MOE_FP32_LAYERS)
     mla_launches = phase_serve_routed("serve_mla", mla, MLA_LAYERS, MLA_FP32_LAYERS)

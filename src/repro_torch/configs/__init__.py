@@ -5,9 +5,10 @@ attention (``qwen3-moe-235b-a22b``) and with MLA attention
 (``deepseek-v2-236b``), the vision-language backbone (``internvl2-26b``),
 the attention-free SSM family (``mamba2-1.3b``), the Mamba-2 +
 shared-attention hybrid (``zamba2-1.2b``) and the encoder-decoder
-(``whisper-base``): the reference's ten architectures.
+(``whisper-base``): the reference's ten architectures. ``SHAPES`` holds
+the reference's four workload shapes.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, cell_is_runnable
 
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
@@ -32,4 +33,4 @@ def get(arch_id: str) -> ModelConfig:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "ModelConfig", "get"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "cell_is_runnable", "get"]

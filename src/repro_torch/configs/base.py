@@ -1,9 +1,11 @@
-"""Architecture configuration schema.
+"""Architecture configuration schema + the workload shape grid.
 
 Every architecture is a :class:`ModelConfig`; ``smoke()`` returns the
 reduced same-family variant used by the CPU tests. The schema is the same
 as the JAX reference package's, field for field, so that a configuration
-means the same model in both.
+means the same model in both. ``SHAPES`` is the reference's grid of four
+workload shapes; with the ten architectures it makes the dry-run's 40
+cells (``launch/dryrun``), which ``cell_is_runnable`` filters.
 """
 from __future__ import annotations
 
@@ -175,3 +177,26 @@ class ModelConfig:
         if self.n_encoder_layers:
             kw.update(n_encoder_layers=2)
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str                    # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell, with skip reason."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "long_500k needs sub-quadratic attention (pure full-attention arch)"
+    return True, ""

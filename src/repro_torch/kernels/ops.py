@@ -6,7 +6,7 @@ Under a device mesh the kernels take local shards: ``flash_attention_op``
 given ``DTensor``s runs its forward and backward (K1, K2a/K2b) on each
 rank's shard through ``local_map``, batch over "data" and heads over
 "model" (``attention_on_local_shards``). The serving and SSM kernels (K3,
-K4, K5) refuse a ``DTensor``: serving through a mesh is item 14's, and a
+K4, K5) refuse a ``DTensor``: serving through a mesh is item 14b's, and a
 Mamba-2 layer trains through a mesh on the naive scan (``models.ssm``).
 """
 from __future__ import annotations
@@ -128,7 +128,7 @@ def flash_decode_op(q, k, v, kv_len, *, scale=None):
     integer tensor on q's device; int32 on the card) -> (B,H,D). Forward
     only: the decode path runs under ``no_grad``."""
     refuse_dtensor("flash_decode", "serving through a mesh and the sequence-sharded "
-                   "cache's partial-softmax combine are item 14's", q, k, v)
+                   "cache's partial-softmax combine are item 14b's", q, k, v)
     if q.is_cuda:
         return flash_decode(q, k, v, kv_len, scale=scale)
     _check_decode(q, k, v, kv_len)
@@ -136,7 +136,7 @@ def flash_decode_op(q, k, v, kv_len, *, scale=None):
 
 
 # what K5 on a mesh waits for: training takes the naive scan (K5 is forward only)
-SSD_SCAN_WAITS_FOR = "SSM serving through a mesh is item 14's"
+SSD_SCAN_WAITS_FOR = "SSM serving through a mesh is item 14b's"
 
 
 def ssd_scan_op(x, dt, A, b_, c_):
@@ -156,7 +156,7 @@ def ssd_scan_op(x, dt, A, b_, c_):
 def fused_ffn_op(x, w_gate, w_up, w_down):
     """x (T,D), w_gate/w_up (D,F), w_down (F,D) -> (T,D). Forward only, as
     in the reference: the wrapper refuses inputs that require grad."""
-    refuse_dtensor("fused_ffn", "serving through a mesh is item 14's",
+    refuse_dtensor("fused_ffn", "serving through a mesh is item 14b's",
                    x, w_gate, w_up, w_down)
     if x.is_cuda:
         return fused_ffn(x.contiguous(), w_gate, w_up, w_down)

@@ -2,8 +2,9 @@
 
 Every module describes its parameters as a dict of :class:`P` specs carrying
 shape, *logical axis names* and an initializer. ``init_params`` materializes
-a nested dict of tensors; ``axes_tree`` yields the parallel tree of
-logical-axis tuples. Layer stacks get a leading ``layers`` axis, as in the
+a nested dict of tensors; ``abstract_params`` the same tree as ``meta``
+tensors (shapes and dtypes, no storage: the dry-run's parameters);
+``axes_tree`` yields the parallel tree of logical-axis tuples. Layer stacks get a leading ``layers`` axis, as in the
 JAX reference package: the forward pass loops over it in Python and indexes
 ``[i]``, so the parameter tree converts 1:1 between the two packages.
 """
@@ -68,6 +69,19 @@ def init_params(specs: Specs, generator: torch.Generator,
 
     def walk(s):
         return {k: (_init_one(generator, v, dtype, device) if isinstance(v, P)
+                    else walk(v))
+                for k, v in sorted(s.items())}
+
+    return walk(specs)
+
+
+def abstract_params(specs: Specs, dtype=torch.bfloat16) -> dict:
+    """``specs`` as ``meta`` tensors of ``dtype``: the tree ``init_params``
+    returns, with no storage allocated and nothing drawn (for the dry-run,
+    ``launch/dryrun``). ``LanguageModel.load_params`` takes it."""
+
+    def walk(s):
+        return {k: (torch.empty(v.shape, dtype=dtype, device="meta") if isinstance(v, P)
                     else walk(v))
                 for k, v in sorted(s.items())}
 

@@ -142,8 +142,9 @@ def cache_shardings(cache_tree, mesh, shard_seq: bool = False):
     model when divisible, otherwise the SEQUENCE dim shards over model.
     MLA latent caches (no head dim) always sequence-shard. ``shard_seq``
     (gb=1 long-context) shards S over data instead. SSM conv/ssm states:
-    batch over (pod,data). Nothing in this package calls it yet: serving
-    through a mesh is item 14's (``launch/specs``)."""
+    batch over (pod,data). ``launch/specs`` places the dry-run's decode
+    caches with it; no decode runs on such a cache yet (serving through a
+    mesh is item 14b's)."""
     dims = mesh_sizes(mesh)
     batch_axes = tuple(a for a in ("pod", "data") if a in dims)
     bspec = batch_axes if len(batch_axes) > 1 else (batch_axes[0] if batch_axes else None)
