@@ -68,6 +68,15 @@ Phases, one JSON object a line:
            each launched twice and required bit-identical; K4's allocation
            at T=2048 and T=8192 held below one (T x F) bf16 tensor and to
            16 MiB + 1 MiB
+  checks   (K3's partial entry, for a sequence-sharded cache) at the serve
+           row's shape and at zamba2-1.2b's shared block (G=1), a cache of
+           1024 rows, bf16, kv_len 543, 512 and 1: fp32 out and lse against
+           the plain version, launched twice (bit-identical), kv_len as a
+           tensor (bit-identical); the cache split 2, 4 and 8 ways, each
+           shard's partial at its own length (0 past kv_len) merged by
+           kernels.ops.combine_partials, against whole-cache K3 and the plain
+           version; device ms (graph replay) of the entry, its plain version,
+           `sdpa` on the same rows and each split, beside their bounds
   serve_hybrid  zamba2-1.2b at full width and depth (38 Mamba-2 blocks, 6
            calls of the shared attention + MLP block), bf16, seeded random
            weights, impl="kernel" with fused_ffn: the prefill step on 4 x 512
@@ -230,11 +239,26 @@ Phases, one JSON object a line:
            2^-7 by relative norm; K1 2 x 88, K2a 88, K2b 88 pipelined (88
            each in the loop); host and profiled device ms of a step of each,
            peak memory
+  serve_mesh  ServingEngine without a mesh and through make_host_mesh()'s
+           (1, 1) NCCL mesh (parameters in param_shardings' placements, the
+           cache in cache_shardings'), kernel path, bf16, seeded weights:
+           tinyllama-1.1b at full width and depth, 4 x 64-token prompts and
+           16 greedy steps; zamba2-1.2b at full size with fused_ffn, 4 x 64
+           and 8 steps; tinyllama-1.1b at batch 1, an 8-token prompt and 4
+           steps, where the cache's sequence goes over "data" and every
+           layer's decode takes K3's partial entry and the combine. Tokens
+           equal, logits within LOGIT_ATOL (the largest difference and
+           whether it is 0), K3 and K4 launches equal to the run without
+           the mesh, every cache leaf a DTensor in cache_shardings'
+           placements; host ms a decode step (median, first), device ms of
+           one more step (profiler), peak memory, the phase's seconds
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
            serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh,
-           train_mesh_moe, train_mesh_ssm, pipeline), error, time, plain time, bound and the library
-           call's time; K1 and K2 also at S=4096, D=128, MLA's and the
+           train_mesh_moe, train_mesh_ssm, pipeline, serve_mesh), error, time,
+           plain time, bound and the library call's time; K3's partial entry
+           (flash_decode_partial) as its own entry, with its rows by kv_len
+           and split; K1 and K2 also at S=4096, D=128, MLA's and the
            GQA-MoE's training shapes and the family paths' four shapes, K1 also at the two D=128 models' and the MLA
            model's prefill, K3 with its plan and at its seven other timed shapes
            (`more_shapes`); K4 also its launches by
@@ -375,6 +399,17 @@ PIPE_CASE = (8, 2, 16)
 PIPE_FWD_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
 PIPE_MICROBATCHES, PIPE_SEQ, PIPE_REPEATS = 4, 1024, 4
 PIPE_GRAD_RTOL = 2 ** -7
+# K3's partial entry: the cache of MAX_LEN rows split PARTIAL_SPLITS ways on
+# the one card, at kv_len 543 (inside a middle shard of 4 and 8), 512 (on a
+# shard boundary of every split) and 1 (every shard but the first empty)
+PARTIAL_SPLITS, PARTIAL_KV_LENS = (2, 4, 8), (543, 512, 1)
+# serve_mesh: (arch, fused_ffn, batch, prompt, steps) through ServingEngine
+# without a mesh and through make_host_mesh()'s (1, 1) NCCL mesh, at full
+# width and depth; short prompts cut the length, not the model. At batch 1
+# the cache's sequence goes over "data" (shard_seq), which sends every
+# layer's decode through K3's partial entry and the combine
+SERVE_MESH_RUNS = ((ARCH, False, BATCH, 64, 16), (ARCH, False, 1, 8, 4),
+                   (HYBRID_ARCH, True, BATCH, 64, 8))
 
 
 def emit(obj) -> None:
@@ -681,6 +716,113 @@ def check_decode_graph(gen, *, b, h, kvh, d, s, dtype) -> dict:
             "shape": {"B": b, "H": h, "KVH": kvh, "D": d, "S": s,
                       "dtype": str(dtype).split(".")[-1]},
             "replays_bit_identical_to_host_int": True, "max_abs_err_by_kv_len": errs}
+
+
+def decode_bound(b, h, kvh, d, kv_len, esize, out_bytes, dtype) -> tuple[float, str]:
+    """K3's bound over this run's data: q, the first kv_len cache rows, the
+    outputs (``out_bytes``), and 4·B·H·D·kv_len operations."""
+    return bound(esize * (b * h * d + 2 * b * kv_len * kvh * d) + out_bytes,
+                 4 * b * h * d * kv_len, dtype)
+
+
+def check_decode_partial(gen, *, b, h, kvh, d, s, dtype, label) -> dict:
+    """K3's partial entry (``flash_decode_partial``): at each of
+    PARTIAL_KV_LENS, on the whole cache against its plain version (out and
+    lse), launched twice (bit-identical) and with kv_len as an int32 tensor
+    on the card (bit-identical); then the cache split PARTIAL_SPLITS ways,
+    each shard's partial at its own length (``shard_kv_len``: 0 past
+    kv_len) merged by ``combine_partials``, against whole-cache K3 and the
+    plain version (out) and the whole-cache partial's lse. Device ms (graph
+    replay) of the partial entry and of each split's launches + combine,
+    beside their bounds, at every kv_len; of its plain version and of
+    ``sdpa`` on the same rows, and its eager ms, at the first."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_partial,
+                                                  flash_decode_partial_plain, flash_decode_plain,
+                                                  launch_plan, shard_kv_len)
+    from repro_torch.kernels.ops import combine_partials
+
+    q = randn(gen, (b, h, d), dtype)
+    k = randn(gen, (b, s, kvh, d), dtype)
+    v = randn(gen, (b, s, kvh, d), dtype)
+    tol, esize = TOL[dtype], q.element_size()
+    q4 = q[:, :, None, :]
+    row = {"kernel": "flash_decode_partial", "label": label,
+           "shape": {"B": b, "H": h, "KVH": kvh, "D": d, "S": s,
+                     "dtype": str(dtype).split(".")[-1]},
+           "plan": launch_plan(q.device.index, b, h, kvh, s, d, dtype, True).summary(),
+           "tol": tol, "by_kv_len": {}}
+    for kv_len in PARTIAL_KV_LENS:
+        out, lse = flash_decode_partial(q, k, v, kv_len)
+        again = flash_decode_partial(q, k, v, kv_len)
+        by_tensor = flash_decode_partial(q, k, v, torch.tensor([kv_len], dtype=torch.int32,
+                                                               device="cuda"))
+        whole = flash_decode(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip((out, lse), again)):
+            raise AssertionError(f"flash_decode_partial: two launches differ at kv_len {kv_len}")
+        if not all(torch.equal(a, c) for a, c in zip((out, lse), by_tensor)):
+            raise AssertionError(f"flash_decode_partial: kv_len as a tensor and as a host int "
+                                 f"differ at kv_len {kv_len}")
+        want_out, want_lse = flash_decode_partial_plain(q, k, v, kv_len)
+        plain_whole = flash_decode_plain(q, k, v, kv_len)
+        one = {"max_abs_err": compare(f"partial out, kv_len {kv_len}", out, want_out, tol),
+               "lse_max_abs_err": compare(f"partial lse, kv_len {kv_len}", lse, want_lse, tol),
+               "bit_identical": True, "tensor_kv_len_bit_identical": True, "splits": {}}
+        out_bytes = 4 * (b * h * d + b * h)
+        one["bound_ms"], one["bound_by"] = decode_bound(b, h, kvh, d, kv_len, esize, out_bytes,
+                                                        dtype)
+        one["kernel_ms"] = device_ms(lambda: flash_decode_partial(q, k, v, kv_len))
+        if kv_len == PARTIAL_KV_LENS[0]:
+            kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (k, v))
+            one.update(call_ms=call_ms(lambda: flash_decode_partial(q, k, v, kv_len)),
+                       plain_ms=device_ms(lambda: flash_decode_partial_plain(q, k, v, kv_len)),
+                       library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                           q4, kt, vt, enable_gqa=True)))
+        for n in PARTIAL_SPLITS:
+            s_local = s // n
+            shards = [(k[:, r * s_local:(r + 1) * s_local].contiguous(),
+                       v[:, r * s_local:(r + 1) * s_local].contiguous(),
+                       shard_kv_len(kv_len, r * s_local, s_local)) for r in range(n)]
+
+            def split():
+                parts = [flash_decode_partial(q, k_, v_, n_) for k_, v_, n_ in shards]
+                return combine_partials(torch.stack([o for o, _ in parts]),
+                                        torch.stack([x for _, x in parts]))
+
+            c_out, c_lse = split()
+            name = f"{n}-way split, kv_len {kv_len}"
+            err = {"lengths": [n_ for _, _, n_ in shards],
+                   "vs_whole_k3": compare(f"{name} vs whole-cache K3", c_out, whole, tol),
+                   "vs_plain": compare(f"{name} vs plain", c_out, plain_whole, tol),
+                   "lse_vs_whole_partial": compare(f"{name} lse", c_lse, lse, tol)}
+            err["bound_ms"], err["bound_by"] = decode_bound(b, h, kvh, d, kv_len, esize,
+                                                            esize * b * h * d, dtype)
+            err["device_ms"] = device_ms(split, launches=5)
+            one["splits"][n] = err
+        row["by_kv_len"][kv_len] = one
+    # the row's own numbers: the first kv_len's (543, inside a middle shard)
+    first = row["by_kv_len"][PARTIAL_KV_LENS[0]]
+    row.update({key: first[key] for key in ("max_abs_err", "lse_max_abs_err", "kernel_ms",
+                                            "call_ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")})
+    return row
+
+
+def phase_partial_checks(cfg, hybrid) -> dict:
+    """K3's partial entry at the serve row's shape and at the hybrid's
+    shared block (G=1), both over a cache of MAX_LEN rows, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {"serve": check_decode_partial(gen, b=BATCH, h=cfg.n_heads, kvh=cfg.n_kv_heads,
+                                          d=cfg.head_dim, s=MAX_LEN, dtype=torch.bfloat16,
+                                          label="serve"),
+            "hybrid G=1": check_decode_partial(gen, b=BATCH, h=hybrid.n_heads,
+                                               kvh=hybrid.n_kv_heads, d=hybrid.head_dim,
+                                               s=MAX_LEN, dtype=torch.bfloat16,
+                                               label="hybrid G=1")}
+    for row in rows.values():
+        emit({"phase": "checks", **row})
+    return rows
 
 
 def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, dv=None,
@@ -3512,6 +3654,138 @@ def phase_pipeline(cfg) -> dict:
     return launches
 
 
+def phase_serve_mesh(configs) -> dict:
+    """SERVE_MESH_RUNS through ``launch.serve.ServingEngine``, kernel path,
+    bf16, seeded weights: run A without a mesh, run B on the same weights
+    through ``make_host_mesh()``'s (1, 1) NCCL mesh (parameters in
+    ``param_shardings``' placements, the cache in ``cache_shardings``').
+    B's tokens must equal A's; its logits (prefill and last step) within
+    LOGIT_ATOL of A's, the largest difference reported (one rank runs the
+    same kernels on the same rows: equal to the bit is expected); its K3
+    launches (whole-cache and partial entries together) and K4 launches
+    equal to A's, all on the partial entry at batch 1 (the sequence over
+    "data") and none there at batch 4; every cache leaf a DTensor in
+    ``cache_shardings``' placements. Per run: host ms a decode step (each
+    step timed around a synchronize; the median and the first), device ms
+    of one more step (the profiler's kernel-time sum), peak memory."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding.partition import cache_shardings
+
+    t_start = time.perf_counter()
+    free_memory()
+    counters = (flash_decode, flash_decode_partial, fused_ffn)
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    mesh_s = time.perf_counter() - t0
+    rows, totals = [], dict.fromkeys((c.__name__ for c in counters), 0)
+    weights = {}      # one seeded init an arch, shared by its runs
+    for arch, fused, batch, prompt_len, steps in SERVE_MESH_RUNS:
+        cfg = configs.get(arch)
+        model = LanguageModel(cfg, impl="kernel", fused_ffn=fused)
+        if arch not in weights:
+            weights.clear()
+            free_memory()
+            model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+            weights[arch] = model.params
+        model.load_params(weights[arch])
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(2))
+        drive_steps = prompt_len + steps - 1
+
+        def run(on_mesh):
+            m = model
+            if on_mesh:       # the same weights in a model of its own, placed by the engine
+                m = LanguageModel(cfg, impl="kernel", fused_ffn=fused).load_params(model.params)
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            engine = ServingEngine(m, batch, MAX_LEN, mesh=mesh if on_mesh else None)
+            decode, step_ms = engine.decode, []
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = decode(*args)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            engine.decode = timed
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            toks = engine.generate(prompts, steps)
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+            engine.decode = decode
+            prof = profile_step(lambda: engine.decode(engine.cache, prompts[:, :1], drive_steps))
+            return {"engine": engine, "tokens": toks, "launches": launches, "step_ms": step_ms,
+                    "device_ms": prof["device_ms"], "profile": prof,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+
+        a = run(False)
+        b = run(True)
+        name = f"serve_mesh {arch} batch {batch}"
+        if not torch.equal(a["tokens"], b["tokens"]):
+            raise AssertionError(f"{name}: tokens through the mesh differ from those without")
+        ea, eb = a["engine"], b["engine"]
+        diffs = {part: logits_agree(f"{name}: {part} logits, mesh vs none",
+                                    getattr(eb, part), getattr(ea, part))
+                 for part in ("prefill_logits", "last_logits")}
+        la, lb = a["launches"], b["launches"]
+        calls = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+        k3_a = la["flash_decode"] + la["flash_decode_partial"]
+        k3_b = lb["flash_decode"] + lb["flash_decode_partial"]
+        on_partial = lb["flash_decode_partial"] if batch == 1 else lb["flash_decode"]
+        if (k3_a != calls * drive_steps or k3_b != k3_a or on_partial != k3_b
+                or la["fused_ffn"] != lb["fused_ffn"]
+                or la["fused_ffn"] != (calls * drive_steps if fused else 0)):
+            raise AssertionError(f"{name}: launches {lb} through the mesh, {la} without")
+        want = cache_shardings(eb.cache, mesh, shard_seq=batch == 1)
+        placed = {k: [str(p) for p in v.placements] for k, v in eb.cache.items()
+                  if isinstance(v, DTensor) and tuple(v.placements) == want[k].placements}
+        if len(placed) != len(eb.cache):
+            raise AssertionError(f"{name}: cache leaves not in cache_shardings' placements")
+
+        def times(r):
+            return {"decode_ms_host_median": statistics.median(r["step_ms"][1:]),
+                    "decode_ms_host_first": r["step_ms"][0],
+                    "decode_ms_device": r["device_ms"], "peak_bytes": r["peak_bytes"],
+                    "profile_top": r["profile"]["top"][:6]}
+
+        rows.append({"arch": cfg.name, "n_layers": cfg.n_layers, "fused_ffn": fused,
+                     "batch": batch, "prompt_len": prompt_len, "gen_steps": steps,
+                     "max_len": MAX_LEN, "tokens_equal": True,
+                     "logit_max_abs_diff": diffs,
+                     "logits_bit_equal": all(torch.equal(getattr(ea, p), getattr(eb, p))
+                                             for p in diffs),
+                     "launches": lb, "launches_no_mesh": la, "cache_placements": placed,
+                     "no_mesh": times(a), "mesh_run": times(b),
+                     "mesh_minus_no_mesh_ms": {
+                         "host_median": times(b)["decode_ms_host_median"]
+                         - times(a)["decode_ms_host_median"],
+                         "device": b["device_ms"] - a["device_ms"]}})
+        for c, n in lb.items():
+            totals[c] += n
+        del a, b, ea, eb, model
+        free_memory()
+    weights.clear()
+    emit({"phase": "serve_mesh", "dtype": "bfloat16", "impl": "kernel",
+          "mesh": {"shape": list(mesh.shape), "dim_names": list(mesh.mesh_dim_names),
+                   "backend": dist.get_backend(), "make_host_mesh_s": mesh_s},
+          "step_ms_device_from": "torch.profiler kernel-time sum of one more step",
+          "runs": rows, "phase_s": time.perf_counter() - t_start})
+    dist.destroy_process_group()
+    free_memory()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3540,8 +3814,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": Path(lib._name).name,
           "sources": [str(s.relative_to(ROOT)) for s in build.sources() + build.headers()],
           "ptxas": ptxas})
+    # three head dims, each for the whole-cache entry (<D,0>) and the partial one (<D,1>)
     k3_bf16 = {n: r for n, r in ptxas.items() if n.startswith("flash_decode_mma")}
-    if len(k3_bf16) != 3 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+    if len(k3_bf16) != 6 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                 for r in k3_bf16.values()):
         raise AssertionError(f"K3's bf16 instances must build without spills: {k3_bf16}")
     # K1 at MLA's head dims: both instances built, the bf16 one without
@@ -3574,6 +3849,7 @@ def main() -> int:
     audio = configs.get(AUDIO_ARCH)
     fam = phase_family_checks(audio, hybrid)
     hyb = phase_hybrid_checks(hybrid, configs.get("mamba2-1.3b"))
+    partial = phase_partial_checks(cfg, hybrid)
     launches = phase_serve(cfg)
     hybrid_launches, ffn_by_route, ssd_by_route = phase_serve_hybrid(hybrid)
     train_launches, train_row = phase_train(cfg)
@@ -3590,6 +3866,7 @@ def main() -> int:
     train_mesh_moe_launches = phase_train_mesh_moe(configs)
     train_mesh_ssm_launches = phase_train_mesh_ssm(configs)
     pipeline_launches = phase_pipeline(cfg)
+    serve_mesh_launches = phase_serve_mesh(configs)
 
     def timing(row):
         return {"ms": row["kernel_ms"], "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
@@ -3625,7 +3902,8 @@ def main() -> int:
                 "train_mesh": train_mesh_launches.get(name, 0),
                 "train_mesh_moe": train_mesh_moe_launches.get(name, 0),
                 "train_mesh_ssm": train_mesh_ssm_launches.get(name, 0),
-                "pipeline": pipeline_launches.get(name, 0)}
+                "pipeline": pipeline_launches.get(name, 0),
+                "serve_mesh": serve_mesh_launches.get(name, 0)}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]
@@ -3659,6 +3937,20 @@ def main() -> int:
                                    "max_abs_err": row["max_abs_err"], **timing(row),
                                    "library_ms": row["library_ms"]}
                              for key, row in {**fd_more, **fam["fd"]}.items()}),
+        summary("flash_decode_partial", "flash_decode.cu", "src/repro/kernels/flash_decode.py:75",
+                by_path("flash_decode_partial"), partial["serve"],
+                max(partial["serve"]["max_abs_err"], partial["serve"]["lse_max_abs_err"]),
+                timing(partial["serve"]), partial["serve"]["library_ms"],
+                entry="flash_decode_partial_fwd: K3's second entry (fp32 out + lse, kv_len 0 "
+                      "allowed), for a sequence-sharded cache; the combine is "
+                      "kernels.ops.combine_partials",
+                plan=partial["serve"]["plan"],
+                by_kv_len={key: {kv: {f: one[f] for f in ("max_abs_err", "lse_max_abs_err",
+                                                          "kernel_ms", "call_ms", "plain_ms",
+                                                          "library_ms", "bound_ms", "bound_by")
+                                      if f in one} | {"splits": one["splits"]}
+                                      for kv, one in row["by_kv_len"].items()}
+                           for key, row in partial.items()}),
         summary("fused_ffn", "fused_ffn.cu", "src/repro/kernels/fused_ffn.py:55",
                 by_path("fused_ffn"), ffn_p, ffn_p["max_abs_err"], timing(ffn_p),
                 ffn_p["library_ms"], library_covers=ffn_p["library_covers"],

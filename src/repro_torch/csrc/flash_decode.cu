@@ -57,6 +57,22 @@
 // bf16 rounding. A device kv_len outside [1, S] is clamped into it, so no
 // read leaves the cache.
 //
+// The partial entry (`flash_decode_partial_fwd`) serves a cache whose
+// sequence is sharded over several ranks: each rank holds S rows of it and
+// attends over the first kv_len of them, and the ranks' results are then
+// combined by their log-sum-exps (`kernels.ops.combine_partials`, the
+// flash-decode split). It is the same kernel, plan, walk and merges, one
+// launch a call; only the end differs. The last merge (over the cluster's
+// ranks) already holds each row's m and l, so instead of dividing them away
+// it writes the normalised output in fp32 (out = acc / l, whatever the
+// cache's dtype) and lse = (m + log2 l) ln 2, the natural-log log-sum-exp of
+// the scaled scores. That costs 2 x the bf16 output's bytes plus 4 bytes a
+// head, and no pass. kv_len may be 0 here (a rank whose shard holds no
+// valid key; a device kv_len is clamped into [0, S], never up to 1): every
+// warp then walks no tile and keeps the empty state (m = NEG_INF, l = 0),
+// and the row is written as out = 0, lse = NEG_INF, which weighs exactly 0
+// in the combine.
+//
 // Plain C interface, no allocation, no synchronisation: the caller provides
 // the output and the stream, and gets cudaGetLastError() back.
 
@@ -94,8 +110,11 @@ template <int D> __host__ __device__ constexpr size_t fma_smem() {
   return (size_t)(ROWS * D + (WARPS + 1) * part_floats<D>()) * sizeof(float);
 }
 
-__device__ __forceinline__ int read_kv_len(const int* dev, int host, int S) {
-  return min(max(dev ? *dev : host, 1), S);
+constexpr float LN2 = 0.6931471805599453f;
+
+// The whole-cache entry reads kv_len in [1, S], the partial entry in [0, S].
+__device__ __forceinline__ int read_kv_len(const int* dev, int host, int lo, int S) {
+  return min(max(dev ? *dev : host, lo), S);
 }
 
 // The block's state in `blk`, merged over the warps' states (`parts`, `stride`
@@ -133,10 +152,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, float4 x) {
 // After cluster.sync(): rank `rank` merges its share of the fragment's
 // rows x D outputs over the ranks' block states in rank order 0..c-1 (through
 // distributed shared memory), normalises and writes them; o is the
-// fragment's row 0.
+// fragment's row 0. Where `lse` is not null (the partial entry) each row's
+// natural-log log-sum-exp goes there too, NEG_INF for a row with no key.
 template <typename T, int D>
 __device__ __forceinline__ void merge_ranks(cg::cluster_group& cluster, float* blk, T* o,
-                                            int rows, int rank, int c) {
+                                            float* lse, int rows, int rank, int c) {
   const int units = rows * D / 4;
   for (int u = rank * units / c + threadIdx.x; u < (rank + 1) * units / c; u += THREADS) {
     const int row = u / (D / 4), col = (u % (D / 4)) * 4;
@@ -153,6 +173,7 @@ __device__ __forceinline__ void merge_ranks(cg::cluster_group& cluster, float* b
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
     store4(o + row * D + col, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+    if (lse && col == 0) lse[row] = l > 0.f ? (m + log2f(l)) * LN2 : NEG_INF;
   }
 }
 
@@ -163,7 +184,7 @@ struct Walk {
 };
 
 __device__ __forceinline__ Walk walk_of(const cg::cluster_group& cluster, const int* kv_len_dev,
-                                        int kv_len_host, int S, int H, int KVH) {
+                                        int kv_len_host, int min_len, int S, int H, int KVH) {
   Walk w;
   w.c = (int)cluster.num_blocks();
   w.rank = (int)cluster.block_rank();
@@ -172,7 +193,7 @@ __device__ __forceinline__ Walk walk_of(const cg::cluster_group& cluster, const 
   w.kvh = (id / frags) % KVH;
   w.b = id / (frags * KVH);
   w.rows = min(ROWS, G - w.f * ROWS);
-  w.kv_len = read_kv_len(kv_len_dev, kv_len_host, S);
+  w.kv_len = read_kv_len(kv_len_dev, kv_len_host, min_len, S);
   const int live = (w.kv_len + KEYS - 1) / KEYS;    // tiles holding a key below kv_len
   w.first = w.rank + w.c * (int)(threadIdx.x / 32);
   w.stride = w.c * WARPS;
@@ -185,20 +206,21 @@ __device__ __forceinline__ Walk walk_of(const cg::cluster_group& cluster, const 
 // ---------------------------------------------------------------------------
 
 // Thread (g = lane/4, t = lane%4) of a warp holds query rows g and g + 8 of
-// the fragment in the mma fragment layout.
-template <int D>
+// the fragment in the mma fragment layout. PARTIAL: o is fp32 and lse is
+// written (the partial entry); else o is bf16 and lse is null.
+template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 flash_decode_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 const int* __restrict__ kv_len_dev, int kv_len_host, int S, int H, int KVH,
-                 float scale_log2) {
+                 const __nv_bfloat16* __restrict__ v, void* __restrict__ o,
+                 float* __restrict__ lse, const int* __restrict__ kv_len_dev, int kv_len_host,
+                 int S, int H, int KVH, float scale_log2) {
   constexpr int BN = KEYS, LD = D + 8, NT = BN / 8;
   constexpr int WARP_ELEMS = mma_warp_bytes<D>() / (int)sizeof(__nv_bfloat16);
   static_assert(part_floats<D>() * (int)sizeof(float) <= mma_warp_bytes<D>(),
                 "a warp's merge state fits in its ring");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Walk w = walk_of(cluster, kv_len_dev, kv_len_host, S, H, KVH);
+  const Walk w = walk_of(cluster, kv_len_dev, kv_len_host, PARTIAL ? 0 : 1, S, H, KVH);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw) + warp * WARP_ELEMS;
   float* blk = reinterpret_cast<float*>(smem_raw + WARPS * mma_warp_bytes<D>());
@@ -284,7 +306,12 @@ flash_decode_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   __syncthreads();
   merge_warps<D>(reinterpret_cast<const float*>(smem_raw), WARP_ELEMS / 2, blk, w.rows);
   cluster.sync();                        // every rank's block state is visible to the cluster
-  merge_ranks<__nv_bfloat16, D>(cluster, blk, o + head0 * D, w.rows, w.rank, w.c);
+  if constexpr (PARTIAL)
+    merge_ranks<float, D>(cluster, blk, static_cast<float*>(o) + head0 * D, lse + head0, w.rows,
+                          w.rank, w.c);
+  else
+    merge_ranks<__nv_bfloat16, D>(cluster, blk, static_cast<__nv_bfloat16*>(o) + head0 * D,
+                                  nullptr, w.rows, w.rank, w.c);
   cluster.sync();                        // no rank leaves while another reads its state
 }
 
@@ -292,17 +319,17 @@ flash_decode_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // fp32: IEEE FMAs, loads straight from L2
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_fma(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+                 const float* __restrict__ v, void* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ kv_len_dev, int kv_len_host, int S, int H, int KVH,
                  float scale_log2) {
   constexpr int BN = KEYS, J = D / 32;
   static_assert(ROWS * BN <= part_floats<D>(), "a warp's P fits in its part");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Walk w = walk_of(cluster, kv_len_dev, kv_len_host, S, H, KVH);
+  const Walk w = walk_of(cluster, kv_len_dev, kv_len_host, PARTIAL ? 0 : 1, S, H, KVH);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* qs = reinterpret_cast<float*>(smem_raw);        // [ROWS][D], rows >= rows zero
   float* parts = qs + ROWS * D;                          // WARPS x part_floats<D>
@@ -402,7 +429,8 @@ flash_decode_fma(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   merge_warps<D>(parts, part_floats<D>(), blk, w.rows);
   cluster.sync();
-  merge_ranks<float, D>(cluster, blk, o + head0 * D, w.rows, w.rank, w.c);
+  merge_ranks<float, D>(cluster, blk, static_cast<float*>(o) + head0 * D,
+                        PARTIAL ? lse + head0 : nullptr, w.rows, w.rank, w.c);
   cluster.sync();
 }
 
@@ -413,30 +441,33 @@ flash_decode_fma(const float* __restrict__ q, const float* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;             // the partial entry's; null for the whole-cache entry
   const int* kv_len_dev;
   int kv_len_host, S, H, KVH;
   float scale_log2;
   int cluster, grid_x;
   cudaStream_t stream;
+  bool partial;
 };
 
 template <typename T>
-using KernelFn = void (*)(const T*, const T*, const T*, T*, const int*, int, int, int, int, float);
+using KernelFn = void (*)(const T*, const T*, const T*, void*, float*, const int*, int, int, int,
+                          int, float);
 
-// The kernel instance of a dtype and head dim, its shared memory and its tile.
-template <typename T, int D> struct Kernel;
-template <int D> struct Kernel<__nv_bfloat16, D> {
-  static KernelFn<__nv_bfloat16> fn() { return flash_decode_mma<D>; }
+// The kernel instance of a dtype, head dim and entry, and its shared memory.
+template <typename T, int D, bool PARTIAL> struct Kernel;
+template <int D, bool PARTIAL> struct Kernel<__nv_bfloat16, D, PARTIAL> {
+  static KernelFn<__nv_bfloat16> fn() { return flash_decode_mma<D, PARTIAL>; }
   static constexpr size_t smem = mma_smem<D>();
 };
-template <int D> struct Kernel<float, D> {
-  static KernelFn<float> fn() { return flash_decode_fma<D>; }
+template <int D, bool PARTIAL> struct Kernel<float, D, PARTIAL> {
+  static KernelFn<float> fn() { return flash_decode_fma<D, PARTIAL>; }
   static constexpr size_t smem = fma_smem<D>();
 };
 
 // The kernel's attributes (dynamic shared memory, clusters of 16), set once
 // per instance and device: not on every call.
-template <typename T, int D>
+template <typename T, int D, bool PARTIAL>
 cudaError_t prepare() {
   static std::atomic<unsigned long long> ready{0};   // a bit per device
   int dev = 0;
@@ -444,11 +475,12 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (bit && (ready.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
-  if ((err = cudaFuncSetAttribute(Kernel<T, D>::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)Kernel<T, D>::smem)) != cudaSuccess)
+  using K = Kernel<T, D, PARTIAL>;
+  if ((err = cudaFuncSetAttribute(K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)K::smem)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(Kernel<T, D>::fn(),
-                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+  if ((err = cudaFuncSetAttribute(K::fn(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+      cudaSuccess)
     return err;
   ready.fetch_or(bit, std::memory_order_relaxed);
   return cudaSuccess;
@@ -459,7 +491,7 @@ cudaLaunchConfig_t config(const Args& a, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.grid_x, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = Kernel<T, D>::smem;
+  cfg.dynamicSmemBytes = Kernel<T, D, false>::smem;   // the same for both entries
   cfg.stream = a.stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = a.cluster;
@@ -470,27 +502,37 @@ cudaLaunchConfig_t config(const Args& a, cudaLaunchAttribute* attr) {
   return cfg;
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args& a) {
-  cudaError_t err = prepare<T, D>();
+template <typename T, int D, bool PARTIAL>
+cudaError_t launch_entry(const Args& a) {
+  cudaError_t err = prepare<T, D, PARTIAL>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config<T, D>(a, attr);
-  if ((err = cudaLaunchKernelEx(&cfg, Kernel<T, D>::fn(), static_cast<const T*>(a.q),
-                                static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                                static_cast<T*>(a.o), a.kv_len_dev, a.kv_len_host, a.S, a.H,
-                                a.KVH, a.scale_log2)) != cudaSuccess)
+  if ((err = cudaLaunchKernelEx(&cfg, Kernel<T, D, PARTIAL>::fn(), static_cast<const T*>(a.q),
+                                static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.o,
+                                a.lse, a.kv_len_dev, a.kv_len_host, a.S, a.H, a.KVH,
+                                a.scale_log2)) != cudaSuccess)
     return err;
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t max_clusters(const Args& a, int* out) {
-  cudaError_t err = prepare<T, D>();
+cudaError_t launch(const Args& a) {
+  return a.partial ? launch_entry<T, D, true>(a) : launch_entry<T, D, false>(a);
+}
+
+template <typename T, int D, bool PARTIAL>
+cudaError_t max_clusters_of(const Args& a, int* out) {
+  cudaError_t err = prepare<T, D, PARTIAL>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config<T, D>(a, attr);
-  return cudaOccupancyMaxActiveClusters(out, Kernel<T, D>::fn(), &cfg);
+  return cudaOccupancyMaxActiveClusters(out, Kernel<T, D, PARTIAL>::fn(), &cfg);
+}
+
+template <typename T, int D>
+cudaError_t max_clusters(const Args& a, int* out) {
+  return a.partial ? max_clusters_of<T, D, true>(a, out) : max_clusters_of<T, D, false>(a, out);
 }
 
 // Does the plan's grid give each (b, kv head, fragment) one cluster of
@@ -550,20 +592,40 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, voi
                                 int grid_x, int device, void* stream) {
   if (!covers(B, S, H, KVH, D, tile, cluster, grid_x)) return -1;
   if (!kv_len_dev && (kv_len_host < 1 || kv_len_host > S)) return -1;
-  const Args a{q, k, v, o, kv_len_dev, kv_len_host, S, H, KVH, scale * LOG2E, cluster, grid_x,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, o, nullptr, kv_len_dev, kv_len_host, S, H, KVH, scale * LOG2E, cluster,
+               grid_x, static_cast<cudaStream_t>(stream), false};
   return on_device(device, [&] {
     return is_bf16 ? dispatch<__nv_bfloat16>(a, D) : dispatch<float>(a, D);
   });
 }
 
-// cudaOccupancyMaxActiveClusters of this launch, into *out: how many of its
-// clusters the card holds at once.
+// The partial entry: o (B,H,D) fp32, normalised over this cache's first
+// kv_len rows, and lse (B,H) fp32, their natural-log log-sum-exp; kv_len in
+// [0, S] (a device kv_len is clamped into it), a row with no key giving
+// o = 0 and lse = NEG_INF. Otherwise as flash_decode_fwd.
+extern "C" int flash_decode_partial_fwd(const void* q, const void* k, const void* v, float* o,
+                                        float* lse, const int* kv_len_dev, int kv_len_host,
+                                        int B, int S, int H, int KVH, int D, float scale,
+                                        int is_bf16, int tile, int cluster, int grid_x,
+                                        int device, void* stream) {
+  if (!covers(B, S, H, KVH, D, tile, cluster, grid_x) || !lse) return -1;
+  if (!kv_len_dev && (kv_len_host < 0 || kv_len_host > S)) return -1;
+  const Args a{q, k, v, o, lse, kv_len_dev, kv_len_host, S, H, KVH, scale * LOG2E, cluster,
+               grid_x, static_cast<cudaStream_t>(stream), true};
+  return on_device(device, [&] {
+    return is_bf16 ? dispatch<__nv_bfloat16>(a, D) : dispatch<float>(a, D);
+  });
+}
+
+// cudaOccupancyMaxActiveClusters of this launch (of the partial entry's
+// instance where `partial`), into *out: how many of its clusters the card
+// holds at once.
 extern "C" int flash_decode_max_clusters(int B, int S, int H, int KVH, int D, int is_bf16,
-                                         int tile, int cluster, int grid_x, int device, int* out) {
+                                         int tile, int cluster, int grid_x, int partial,
+                                         int device, int* out) {
   if (!covers(B, S, H, KVH, D, tile, cluster, grid_x)) return -1;
-  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, S, H, KVH, 1.f, cluster, grid_x,
-               nullptr};
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, S, H, KVH, 1.f, cluster,
+               grid_x, nullptr, partial != 0};
   return on_device(device, [&] {
     return is_bf16 ? dispatch_max_clusters<__nv_bfloat16>(a, D, out)
                    : dispatch_max_clusters<float>(a, D, out);

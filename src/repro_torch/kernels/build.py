@@ -130,8 +130,15 @@ def load_library() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32, i32,
                                      f32, i32, i32, i32, i32, i32, ptr]
     lib.flash_decode_fwd.restype = i32
-    # (B, S, H, KVH, D, is_bf16, tile, cluster, grid x, device, int* max_clusters)
-    lib.flash_decode_max_clusters.argtypes = [i32] * 10 + [ptr]
+    # (q, k, v, out fp32, lse fp32, int* kv_len or NULL, kv_len, B, S, H, KVH,
+    #  D, scale, is_bf16, tile, cluster, grid x, device, stream): the partial entry
+    lib.flash_decode_partial_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                             i32, i32, i32, i32, i32, i32,
+                                             f32, i32, i32, i32, i32, i32, ptr]
+    lib.flash_decode_partial_fwd.restype = i32
+    # (B, S, H, KVH, D, is_bf16, tile, cluster, grid x, partial, device,
+    #  int* max_clusters)
+    lib.flash_decode_max_clusters.argtypes = [i32] * 11 + [ptr]
     lib.flash_decode_max_clusters.restype = i32
     # (x, dt, A, b, c, y, state, B, S, H, P, N, is_bf16, route_mma, stream)
     lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,

@@ -1,7 +1,8 @@
-"""flash_decode: the wrapper of the one-launch CUDA kernel in
-``csrc/flash_decode.cu``, and the plain PyTorch version beside it.
+"""flash_decode: the wrappers of the one-launch CUDA kernel in
+``csrc/flash_decode.cu``, and the plain PyTorch versions beside them.
 
     q (B,H,D), k/v (B,S,KVH,D), kv_len -> out (B,H,D)
+    flash_decode_partial: ... -> (out (B,H,D) fp32, lse (B,H) fp32)
 
 One query token per sequence against a cache whose first ``kv_len``
 positions are valid. ``kv_len`` is a host int, or a one-element integer
@@ -12,6 +13,14 @@ and is read by the kernel, never by the host (a read would wait for the
 device), so one captured CUDA graph serves every position. The kernel rounds
 the softmax weights to bf16 for the product with V when the cache is bf16;
 the plain version keeps them fp32, so the two agree to bf16 rounding.
+
+``flash_decode_partial`` is the kernel's second entry, for one rank's shard
+of a cache whose sequence is sharded: the output normalised over this
+shard's first ``kv_len`` rows, in fp32, and the natural-log log-sum-exp of
+those rows' scaled scores. ``kv_len`` may be 0 there (a shard that holds no
+valid key: out 0, lse NEG_INF). ``kernels.ops.combine_partials`` merges the
+shards' results by their lse, and ``shard_kv_len`` gives each shard its
+length.
 
 ``decode_plan`` is the host-side plan the kernel is launched with: the grid
 (one thread-block cluster per (b, KV head, 16-row fragment of the group's
@@ -42,6 +51,35 @@ TARGET_BLOCKS = 264         # two blocks on each of an H100's 132 SMs
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def shard_kv_len(kv_len, first: int, rows: int):
+    """The valid rows of a shard that holds rows [first, first + rows) of a
+    cache whose first ``kv_len`` rows are valid: ``min(max(kv_len - first,
+    0), rows)``, a host int, or a tensor where ``kv_len`` is one."""
+    if isinstance(kv_len, torch.Tensor):
+        return (kv_len - first).clamp(0, rows).to(kv_len.dtype)
+    return min(max(kv_len - first, 0), rows)
+
+
+def flash_decode_partial_plain(q, k, v, kv_len, scale: float | None = None):
+    """Plain version of the partial entry, fp32 inside: (out (B,H,Dv) fp32,
+    normalised over the first ``kv_len`` rows, lse (B,H) fp32, the
+    natural-log log-sum-exp of their scaled scores). ``kv_len`` 0 gives
+    out 0 and lse NEG_INF."""
+    b, h, d = q.shape
+    _, s, kvh, _ = k.shape
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, kvh, g, d).float()
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
+    valid = torch.arange(s, device=q.device) < kv_len
+    sc = sc.masked_fill(~valid, NEG_INF)
+    lse = torch.logsumexp(sc, dim=-1)
+    p = torch.exp(sc - lse[..., None]) * valid          # masked rows weigh exactly 0
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    lse = torch.where(valid.any(), lse, torch.full_like(lse, NEG_INF))
+    return out.reshape(b, h, v.shape[-1]), lse.reshape(b, h)
 
 
 def flash_decode_plain(q, k, v, kv_len, scale: float | None = None):
@@ -106,16 +144,18 @@ def decode_walk(plan: DecodePlan, rank: int, warp: int, kv_len: int) -> list[tup
     """The tiles warp ``warp`` of cluster rank ``rank`` visits, in order, each
     as (first key, masked): tiles rank + c (warp + WARPS j) that hold a key
     below ``kv_len``. Only the tile that holds kv_len (when kv_len is not a
-    multiple of the tile) is masked; keys at or beyond kv_len load as zeros."""
+    multiple of the tile) is masked; keys at or beyond kv_len load as zeros.
+    At kv_len 0 (the partial entry's empty shard) no warp visits a tile."""
     t = plan.tile
     return [(n0, n0 + t > kv_len) for n0 in range((rank + plan.cluster * warp) * t, kv_len,
                                                   plan.cluster * plan.warps * t)]
 
 
-def check_inputs(q, k, v, kv_len) -> None:
+def check_inputs(q, k, v, kv_len, min_len: int = 1) -> None:
     """What both versions require of their arguments. A tensor ``kv_len`` is
     one integer; on the CPU its value is checked too (reading it costs no
-    wait), on the card it is the caller's contract (1 <= kv_len <= S)."""
+    wait), on the card it is the caller's contract (min_len <= kv_len <= S;
+    ``min_len`` is 1, or 0 for the partial entry)."""
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q must be (B,H,D) and k, v (B,S,KVH,D)")
     b, h, d = q.shape
@@ -137,42 +177,43 @@ def check_inputs(q, k, v, kv_len) -> None:
         kv_len = int(kv_len)
     elif not isinstance(kv_len, int):
         raise TypeError("kv_len is a host integer or a one-element integer tensor")
-    if not 1 <= kv_len <= k.shape[1]:
-        raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[1]}]")
+    if not min_len <= kv_len <= k.shape[1]:
+        raise ValueError(f"kv_len {kv_len} outside [{min_len}, {k.shape[1]}]")
 
 
 def max_active_clusters(plan: DecodePlan, b: int, h: int, kvh: int, d: int, dtype,
-                        device: int) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the launch of ``plan``: how many
-    of its clusters the card holds at once."""
+                        device: int, partial: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the launch of ``plan`` (of the
+    partial entry's instance where ``partial``): how many of its clusters
+    the card holds at once."""
     out = ctypes.c_int(0)
     lib = build.load_library()
     code = lib.flash_decode_max_clusters(b, plan.s, h, kvh, d, int(dtype == torch.bfloat16),
-                                         plan.tile, plan.cluster, plan.grid[0], device,
-                                         ctypes.byref(out))
+                                         plan.tile, plan.cluster, plan.grid[0], int(partial),
+                                         device, ctypes.byref(out))
     build.check(lib, code, "flash_decode_max_clusters")
     return out.value
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(device: int, b: int, h: int, kvh: int, s: int, d: int, dtype) -> DecodePlan:
+def launch_plan(device: int, b: int, h: int, kvh: int, s: int, d: int, dtype,
+                partial: bool = False) -> DecodePlan:
     """``decode_plan`` with its cluster shrunk, a block at a time, until the
     card holds all of the launch's clusters at once (one wave): a launch of
-    32 clusters of 8 where 30 fit would take two. Queried once a shape."""
+    32 clusters of 8 where 30 fit would take two. Queried once a shape and
+    entry."""
     plan = decode_plan(b, kvh, h // kvh, s, d, dtype)
-    while plan.cluster > 1 and (max_active_clusters(plan, b, h, kvh, d, dtype, device)
+    while plan.cluster > 1 and (max_active_clusters(plan, b, h, kvh, d, dtype, device, partial)
                                 < plan.grid[0] // plan.cluster):
         plan = decode_plan(b, kvh, h // kvh, s, d, dtype, plan.cluster - 1)
     return plan
 
 
-def flash_decode(q, k, v, kv_len, scale: float | None = None):
-    """Launches the CUDA kernel on the current stream. CUDA tensors, bf16 or
-    fp32, contiguous, head dim 32, 64 or 128. ``kv_len``: a host int in
-    [1, S], or a one-element int32 tensor on q's device holding a value in
-    [1, S] (the kernel reads it; a value outside is clamped into [1, S])."""
-    check_inputs(q, k, v, kv_len)
-    build.refuse_grad("flash_decode", q, k, v)
+def _launch_args(what: str, q, k, v, kv_len, scale, min_len: int):
+    """What both entries check and pass: (kv_len's pointer or None, the host
+    kv_len, the scale, the device, the plan)."""
+    check_inputs(q, k, v, kv_len, min_len)
+    build.refuse_grad(what, q, k, v)
     build.check_cuda_tensors(q=q, k=k, v=v)
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -186,12 +227,24 @@ def flash_decode(q, k, v, kv_len, scale: float | None = None):
         len_ptr, len_host = None, kv_len
     scale = scale if scale is not None else d ** -0.5
     device = q.device.index
-    plan = launch_plan(device, b, h, kvh, s, d, q.dtype)
+    plan = launch_plan(device, b, h, kvh, s, d, q.dtype, min_len == 0)
+    return len_ptr, len_host, float(scale), device, plan
+
+
+def flash_decode(q, k, v, kv_len, scale: float | None = None):
+    """Launches the CUDA kernel on the current stream. CUDA tensors, bf16 or
+    fp32, contiguous, head dim 32, 64 or 128. ``kv_len``: a host int in
+    [1, S], or a one-element int32 tensor on q's device holding a value in
+    [1, S] (the kernel reads it; a value outside is clamped into [1, S])."""
+    len_ptr, len_host, scale, device, plan = _launch_args("flash_decode", q, k, v, kv_len,
+                                                          scale, 1)
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = build.load_library()
     code = lib.flash_decode_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), len_ptr, len_host,
-        b, s, h, kvh, d, float(scale), int(q.dtype == torch.bfloat16), plan.tile,
+        b, s, h, kvh, d, scale, int(q.dtype == torch.bfloat16), plan.tile,
         plan.cluster, plan.grid[0], device, torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, code, "flash_decode")
     flash_decode.launches += 1
@@ -199,3 +252,28 @@ def flash_decode(q, k, v, kv_len, scale: float | None = None):
 
 
 flash_decode.launches = 0       # calls that launched the kernel
+
+
+def flash_decode_partial(q, k, v, kv_len, scale: float | None = None):
+    """Launches the kernel's partial entry on the current stream: (out
+    (B,H,D) fp32, lse (B,H) fp32) over this cache's first ``kv_len`` rows,
+    as ``flash_decode_partial_plain``. Tensors as ``flash_decode``'s;
+    ``kv_len`` a host int in [0, S] or a one-element int32 tensor on q's
+    device (clamped into [0, S]), one launch a call."""
+    len_ptr, len_host, scale, device, plan = _launch_args("flash_decode_partial", q, k, v,
+                                                          kv_len, scale, 0)
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    lib = build.load_library()
+    code = lib.flash_decode_partial_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), len_ptr,
+        len_host, b, s, h, kvh, d, scale, int(q.dtype == torch.bfloat16), plan.tile,
+        plan.cluster, plan.grid[0], device, torch.cuda.current_stream(device).cuda_stream)
+    build.check(lib, code, "flash_decode_partial")
+    flash_decode_partial.launches += 1
+    return out, lse
+
+
+flash_decode_partial.launches = 0   # calls that launched the partial entry

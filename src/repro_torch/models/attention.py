@@ -13,17 +13,26 @@ the shared rope key) and the host-side position of the new token, and write
 the cache in place. MLA's prefill reaches K1 at q/k head dim
 ``head_dim + rope_head_dim`` and v head dim ``v_head_dim``; its decode is the
 absorbed form over the latent cache, plain products as in the reference.
+
+Under a device mesh the caches are ``DTensor``s in ``cache_shardings``'
+placements. The new token's row is written into the local shard of the rank
+that holds its position (``write_cache_row``), and the decode reads each
+rank's shard where it lies: GQA through ``kernels.ops.flash_decode_op``, MLA
+by each rank's partial softmax over its rows and ``combine_partials`` where
+the latent cache's sequence is sharded. Neither gathers the cache.
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_decode import flash_decode_partial_plain, shard_kv_len
 from repro_torch.models.base import P, Specs
 from repro_torch.models.layers import apply_rope
-from repro_torch.sharding.partition import constrain, mesh_sizes
+from repro_torch.sharding.partition import constrain, mesh_sizes, replicate_like
 
 NEG_INF = -1e30
 IMPLS = ("naive", "kernel")
@@ -136,25 +145,60 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     return out.reshape(b, s, -1) @ params["wo"]
 
 
+def write_cache_row(cache, pos: int, row) -> None:
+    """``cache[:, pos] = row`` IN PLACE: ``cache`` (B, S, ...), ``row`` (B,
+    ...). A ``DTensor`` cache is written in its local shard (indexing a
+    ``DTensor`` on a sharded dim could write a redistributed temporary and
+    leave the cache as it was): ``row`` is brought to the cache's layout
+    less the sequence dim, and only the rank whose sequence shard holds
+    ``pos`` writes, at ``pos`` less its shard's first row."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = row.to(cache.dtype)
+        return
+    _, seq_dim = kops.cache_layout(cache)
+    row_layout = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                  else (Replicate() if isinstance(p, Shard) and p.dim == 1 else p)
+                  for p in cache.placements]
+    # every rank redistributes (a collective), one writes
+    row = replicate_like(row, cache).redistribute(cache.device_mesh, row_layout).to_local()
+    local = cache.to_local()
+    offset = kops.seq_offset(cache, seq_dim)
+    if offset <= pos < offset + local.shape[1]:
+        local[:, pos - offset] = row.to(local.dtype)
+    elif seq_dim is None:
+        raise IndexError(f"position {pos} outside the cache's {cache.shape[1]} rows")
+
+
 def gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int,
                impl="kernel"):
     """One-token decode. cache_[kv]: (B, S, KVH, D), updated IN PLACE at
-    ``pos``, the host-side index of the new token. Returns
-    (out, cache_k, cache_v), the caches being the tensors passed in."""
+    ``pos``, the host-side index of the new token (``write_cache_row``).
+    Returns (out, cache_k, cache_v), the caches being the tensors passed
+    in."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not one of {IMPLS}")
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = gqa_project_qkv(params, cfg, x, positions)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    write_cache_row(cache_k, pos, k[:, 0])
+    write_cache_row(cache_v, pos, v[:, 0])
     q = q.to(cache_k.dtype)
     if impl == "kernel":
         out = kops.flash_decode_op(q[:, 0], cache_k, cache_v, pos + 1)
+    elif isinstance(cache_k, DTensor):
+        # the oracle on each rank's shards, laid out as the kernel path reads them
+        out = kops.decode_on_local_shards(q[:, 0], cache_k, cache_v, pos + 1,
+                                          whole=_decode_attention_3d,
+                                          partial=flash_decode_partial_plain)
     else:
         out = decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
     out = out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
     return out, cache_k, cache_v
+
+
+def _decode_attention_3d(q, k_cache, v_cache, kv_len, scale=None):
+    """``decode_attention`` on q (B,H,D), as K3 takes it: (B,H,Dv)."""
+    return decode_attention(q[:, None], k_cache, v_cache, kv_len, scale)[:, 0]
 
 
 def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
@@ -162,7 +206,9 @@ def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
     ``x`` (B,1,d), keys and values the cached (B,S_enc,KVH,D), every row
     valid, no rotary embedding. ``impl="kernel"`` runs K3 at kv_len = S_enc,
     ``"naive"`` the plain ``decode_attention`` the reference takes. An empty
-    cache (S_enc = 0) adds nothing, as the reference's sum over no keys."""
+    cache (S_enc = 0) adds nothing, as the reference's sum over no keys.
+    A ``DTensor`` cache is read where it lies, as ``gqa_decode`` reads its
+    own (the encoder-decoder's mesh path, which fills it, is item 14c's)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not one of {IMPLS}")
     b, enc_len = x.shape[0], cross_k.shape[1]
@@ -171,6 +217,10 @@ def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
     q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim).to(cross_k.dtype)
     if impl == "kernel":
         out = kops.flash_decode_op(q[:, 0], cross_k, cross_v, enc_len)
+    elif isinstance(cross_k, DTensor):
+        out = kops.decode_on_local_shards(q[:, 0], cross_k, cross_v, enc_len,
+                                          whole=_decode_attention_3d,
+                                          partial=flash_decode_partial_plain)
     else:
         out = decode_attention(q, cross_k, cross_v, kv_len=enc_len)
     return out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
@@ -255,17 +305,64 @@ def mla_decode(params, cfg: ModelConfig, x, cache_ckv, cache_krope, pos: int, im
     kvl, r, vd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     c_new, krope_new = _mla_latent(params, cfg, x, positions)
-    cache_ckv[:, pos] = c_new[:, 0].to(cache_ckv.dtype)
-    cache_krope[:, pos] = krope_new[:, 0].to(cache_krope.dtype)
+    write_cache_row(cache_ckv, pos, c_new[:, 0])
+    write_cache_row(cache_krope, pos, krope_new[:, 0])
 
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
     q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, params["wk_b"].reshape(kvl, h, hd))
-    s_nope = torch.einsum("bqhl,bkl->bhqk", q_abs.float(), cache_ckv.float())
-    s_rope = torch.einsum("bqhr,bkr->bhqk", q_rope.float(), cache_krope.float())
-    scores = (s_nope + s_rope) * ((hd + r) ** -0.5)
-    mask = torch.arange(cache_ckv.shape[1], device=x.device) < pos + 1
-    p = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
-    ctx = torch.einsum("bhqk,bkl->bqhl", p.to(cache_ckv.dtype), cache_ckv)
+    scale = (hd + r) ** -0.5
+    if isinstance(cache_ckv, DTensor):
+        ctx = _mla_context_on_local_shards(q_abs, q_rope, cache_ckv, cache_krope, pos + 1, scale)
+    else:
+        ctx = _mla_context(q_abs, q_rope, cache_ckv, cache_krope, pos + 1, scale)
     wv_b = params["wv_b"].reshape(kvl, h, vd)
     out = torch.einsum("bqhl,lhv->bqhv", ctx.to(wv_b.dtype), wv_b)
     return out.reshape(b, 1, -1) @ params["wo"], cache_ckv, cache_krope
+
+
+def _mla_scores(q_abs, q_rope, ckv, krope, kv_len, scale):
+    """The absorbed decode's scaled scores (B,H,1,S) fp32 against the latent
+    cache, rows at or past ``kv_len`` NEG_INF, and the rows' validity (S,)."""
+    s_nope = torch.einsum("bqhl,bkl->bhqk", q_abs.float(), ckv.float())
+    s_rope = torch.einsum("bqhr,bkr->bhqk", q_rope.float(), krope.float())
+    valid = torch.arange(ckv.shape[1], device=ckv.device) < kv_len
+    return ((s_nope + s_rope) * scale).masked_fill(~valid, NEG_INF), valid
+
+
+def _mla_context(q_abs, q_rope, ckv, krope, kv_len, scale):
+    """The softmax-weighted latent rows (B,1,H,kv_lora) over the first
+    ``kv_len`` rows of the cache, in its dtype."""
+    scores, _ = _mla_scores(q_abs, q_rope, ckv, krope, kv_len, scale)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkl->bqhl", p.to(ckv.dtype), ckv)
+
+
+def _mla_context_on_local_shards(q_abs, q_rope, ckv, krope, kv_len, scale):
+    """``_mla_context`` on a ``DTensor`` latent cache in ``cache_shardings``'
+    placements, read where it lies: the queries (every head) go to the
+    cache's batch layout, and where the cache's sequence is sharded each
+    rank takes the partial softmax over its rows (normalised by their own
+    log-sum-exp; a rank with no valid row weighs nothing) and
+    ``combine_partials`` merges the ranks' contexts over that mesh dim, the
+    psums XLA inserts for the reference. ``wv_b`` is linear, so it applies
+    after the merge."""
+    mesh = ckv.device_mesh
+    q_layout, seq_dim = kops.cache_layout(ckv)
+    offset = kops.seq_offset(ckv, seq_dim)
+    # the queries' batch where the cache's batch is, every head on every rank
+    q_layout = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in q_layout]
+
+    def local(qa, qr, c_, kr):
+        if seq_dim is None:
+            return _mla_context(qa, qr, c_, kr, kv_len, scale)
+        scores, valid = _mla_scores(qa, qr, c_, kr, shard_kv_len(kv_len, offset, c_.shape[1]),
+                                    scale)
+        lse = torch.logsumexp(scores, dim=-1)                       # (B,H,1)
+        p = torch.exp(scores - lse[..., None]) * valid
+        ctx = torch.einsum("bhqk,bkl->bqhl", p.to(c_.dtype), c_)
+        lse = torch.where(valid.any(), lse, torch.full_like(lse, NEG_INF)).transpose(1, 2)
+        return kops.combine_partials(ctx, lse, mesh, seq_dim)[0].to(c_.dtype)
+
+    return local_map(local, out_placements=q_layout,
+                     in_placements=(q_layout, q_layout, ckv.placements, krope.placements),
+                     device_mesh=mesh, redistribute_inputs=True)(q_abs, q_rope, ckv, krope)

@@ -146,6 +146,17 @@ def on_rows(fn, weights, *rows, out_rows=True, n_out=1):
                      device_mesh=mesh, redistribute_inputs=True)(*flat, *rows)
 
 
+def copy_into(dst, src) -> None:
+    """``dst.copy_(src)``, in place, for ``DTensor``s too: ``src`` is brought
+    to ``dst``'s placements and copied into ``dst``'s local shard, which is
+    the storage a layer's slice of a cache shares with the stacked cache."""
+    if isinstance(dst, DTensor):
+        src = replicate_like(src, dst).redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
 def _gather_rows(w, tokens):
     return w[tokens]
 

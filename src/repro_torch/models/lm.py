@@ -37,7 +37,12 @@ and batch as ``DTensor``s (``sharding.partition``), the residual stream
 sequence-parallel between blocks (``sp_boundary``), attention on each
 rank's shards (``kernels.ops``), the routed experts over "model"
 (``models.moe``), the Mamba-2 mixer on each rank's rows with its weights
-replicated (``models.ssm``; the naive scan: K5 refuses a mesh).
+replicated (``models.ssm``; the naive scan: K5 refuses a mesh). The same
+families but ``audio`` decode through a mesh: ``decode_step`` takes
+``DTensor`` caches in ``cache_shardings``' placements (``cache["k"][i]`` is
+a view of the stacked cache's local shard, so a layer's writes reach it),
+each attention reading its cache where it lies (``models.attention``), the
+Mamba-2 states updated on each rank's rows, K4 on each rank's F-slice.
 """
 from __future__ import annotations
 

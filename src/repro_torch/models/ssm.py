@@ -13,7 +13,10 @@ by ``scan`` (``LanguageModel``'s own choice, apart from attention's
   raises.
 
 Decode keeps O(1)-in-sequence state: (conv window, SSM state), updated in
-place in the caller's cache.
+place in the caller's cache. Under a mesh the states are ``DTensor``s, batch
+over "data" (``cache_shardings``), and the step runs on each rank's rows as
+the training mixer does, its new states copied into the cache's local
+shards (``layers.copy_into``).
 
 Under a device mesh (a ``DTensor`` input) the mixer runs on each rank's
 batch rows with every one of its weights replicated (``layers.on_rows``):
@@ -32,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.base import P, Specs
-from repro_torch.models.layers import on_rows
+from repro_torch.models.layers import copy_into, on_rows
 
 SCANS = ("naive", "kernel")
 
@@ -143,7 +146,20 @@ def mamba2_decode(params, cfg: ModelConfig, x, conv_state, ssm_state):
     """Single-token step. x: (B,1,d); conv_state: (B,kw-1,C); ssm_state:
     (B,H,P,N) fp32. Both states are this layer's slices of the cache and are
     updated IN PLACE. Returns (y, conv_state, ssm_state), the states being the
-    tensors passed in."""
+    tensors passed in. A ``DTensor`` ``x`` runs on each rank's rows with the
+    mixer's weights replicated (``layers.on_rows``)."""
+    if isinstance(x, DTensor):
+        y, conv_new, ssm_new = on_rows(
+            lambda params_, x_, c_, s_: _mamba2_decode(params_, cfg, x_, c_, s_),
+            params, x, conv_state, ssm_state, n_out=3)
+        copy_into(conv_state, conv_new)
+        copy_into(ssm_state, ssm_new)
+        return y, conv_state, ssm_state
+    return _mamba2_decode(params, cfg, x, conv_state, ssm_state)
+
+
+def _mamba2_decode(params, cfg: ModelConfig, x, conv_state, ssm_state):
+    """``mamba2_decode`` on plain tensors."""
     di, h, p, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     zxbcdt = x @ params["in_proj"]
     z, xin, b_, c_, dt = _split_proj(cfg, zxbcdt)

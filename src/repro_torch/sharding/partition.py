@@ -142,9 +142,12 @@ def cache_shardings(cache_tree, mesh, shard_seq: bool = False):
     model when divisible, otherwise the SEQUENCE dim shards over model.
     MLA latent caches (no head dim) always sequence-shard. ``shard_seq``
     (gb=1 long-context) shards S over data instead. SSM conv/ssm states:
-    batch over (pod,data). ``launch/specs`` places the dry-run's decode
-    caches with it; no decode runs on such a cache yet (serving through a
-    mesh is item 14b's)."""
+    batch over (pod,data). ``launch/serve.ServingEngine(mesh=)`` places its
+    cache with it (``shard_seq`` at batch 1), and the decode step reads each
+    rank's shard where it lies (``models.attention``, ``kernels.ops``: a
+    sequence-sharded cache by partial softmax results combined over its
+    mesh dim, where XLA turns the reference's reductions into psums);
+    ``launch/specs`` places the dry-run's decode caches with it."""
     dims = mesh_sizes(mesh)
     batch_axes = tuple(a for a in ("pod", "data") if a in dims)
     bspec = batch_axes if len(batch_axes) > 1 else (batch_axes[0] if batch_axes else None)

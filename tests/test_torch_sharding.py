@@ -376,11 +376,14 @@ TRAIN_2X2 = """
     refused = {}
     x = distribute_tensor(torch.randn(2, 64, 4, 16), mesh, [Shard(0), Replicate()])
     small = distribute_tensor(torch.randn(16, 32), mesh, [Replicate(), Replicate()])
+    # a cache whose head dim is split: no placement of cache_shardings'
+    by_dim = distribute_tensor(torch.randn(2, 64, 4, 16), mesh, [Shard(0), Shard(3)])
     for name, call in (
-            ("flash_decode", lambda: ops.flash_decode_op(x[:, 0], x, x, 5)),
+            ("flash_decode", lambda: ops.flash_decode_op(by_dim[:, 0], by_dim, by_dim, 5)),
             ("ssd_scan", lambda: ops.ssd_scan_op(x, x[..., 0], x[0, 0, :, 0], x[:, :, 0],
                                                  x[:, :, 0])),
-            ("fused_ffn", lambda: ops.fused_ffn_op(x[:, 0, 0], small, small, small.T)),
+            ("fused_ffn", lambda: ops.fused_ffn_op(x[:, 0, 0], small.to_local(),
+                                                   small.to_local(), small.to_local().T)),
             ("stochastic_rounding", lambda: apply_updates(
                 {"w": x.to(torch.bfloat16)}, {"w": x}, {"step": torch.zeros((), dtype=torch.int32),
                                                         "mu": {"w": x}, "nu": {"w": x}},
@@ -515,9 +518,11 @@ def test_attention_with_kv_heads_replicated_over_model(mesh_2x2, heads):
                                    atol=1e-5, rtol=0)
 
 
-# what each refusal names: the ROADMAP item that brings the path, or the recipe
-REFUSAL_REASONS = {"flash_decode": ["item 14"], "ssd_scan": ["item 14"],
-                   "fused_ffn": ["item 14"], "stochastic_rounding": ["master_weights=True"]}
+# what each refusal names: the ROADMAP item that brings the path, the layout
+# the op takes, or the recipe
+REFUSAL_REASONS = {"flash_decode": ["cache_shardings"], "ssd_scan": ["item 14c"],
+                   "fused_ffn": ["DTensors on one mesh"],
+                   "stochastic_rounding": ["master_weights=True"]}
 
 
 @pytest.mark.parametrize("name", list(REFUSAL_REASONS))
