@@ -246,12 +246,25 @@ Phases, one JSON object a line:
            16 greedy steps; zamba2-1.2b at full size with fused_ffn, 4 x 64
            and 8 steps; tinyllama-1.1b at batch 1, an 8-token prompt and 4
            steps, where the cache's sequence goes over "data" and every
-           layer's decode takes K3's partial entry and the combine. Tokens
+           layer's decode takes K3's partial entry and the combine;
+           whisper-base at full size, 4 x 16 + 8 steps and at batch 1, 8 +
+           4 (its self and cross caches' sequences over "data": K3's
+           partial entry at kv_len 1500 for the cross-attention), the cross
+           caches holding 1500 seeded rows, the same in both runs. Tokens
            equal, logits within LOGIT_ATOL (the largest difference and
-           whether it is 0), K3 and K4 launches equal to the run without
-           the mesh, every cache leaf a DTensor in cache_shardings'
-           placements; host ms a decode step (median, first), device ms of
-           one more step (profiler), peak memory, the phase's seconds
+           whether it is 0), K3 (self and cross) and K4 launches equal to
+           the run without the mesh, every cache leaf a DTensor in
+           cache_shardings' placements; host ms a decode step (median,
+           first), device ms of one more step (profiler), peak memory. The
+           prefill step without the mesh and through it (its batch placed
+           as launch/specs places a prefill cell's): tinyllama-1.1b and
+           zamba2-1.2b (fused_ffn) on 4 x 512 tokens, whisper-base on each
+           run's batch x (1500 frames, 448 tokens); last-position logits
+           within LOGIT_ATOL, launches equal to the run without the mesh
+           and as designed (K1 22; K5 38 on the mma route, K1 6, K4 6 on
+           the tiled route; K1 18), host ms of the first and second call,
+           device ms of a third (profiler), peak memory; the phase's
+           seconds
   kernels  the summary line: per kernel its launches on each path (serve,
            serve_hybrid, serve_vlm, serve_moe, serve_mla, train, train_mla,
            serve_audio, train_audio, train_hybrid, train_ckpt, train_mesh,
@@ -403,13 +416,19 @@ PIPE_GRAD_RTOL = 2 ** -7
 # the one card, at kv_len 543 (inside a middle shard of 4 and 8), 512 (on a
 # shard boundary of every split) and 1 (every shard but the first empty)
 PARTIAL_SPLITS, PARTIAL_KV_LENS = (2, 4, 8), (543, 512, 1)
-# serve_mesh: (arch, fused_ffn, batch, prompt, steps) through ServingEngine
-# without a mesh and through make_host_mesh()'s (1, 1) NCCL mesh, at full
-# width and depth; short prompts cut the length, not the model. At batch 1
-# the cache's sequence goes over "data" (shard_seq), which sends every
-# layer's decode through K3's partial entry and the combine
-SERVE_MESH_RUNS = ((ARCH, False, BATCH, 64, 16), (ARCH, False, 1, 8, 4),
-                   (HYBRID_ARCH, True, BATCH, 64, 8))
+# serve_mesh: (arch, fused_ffn, batch, prompt, steps, prefill) through
+# ServingEngine without a mesh and through make_host_mesh()'s (1, 1) NCCL
+# mesh, at full width and depth; short prompts cut the length, not the
+# model. At batch 1 the cache's sequence goes over "data" (shard_seq), which
+# sends every layer's decode through K3's partial entry and the combine
+# (whisper-base's cross-attention too, at kv_len AUDIO_FRAMES). Where
+# `prefill` is set, the run also takes the prefill step without the mesh and
+# through it: BATCH x PROMPT_LEN tokens, whisper-base the run's batch x
+# (AUDIO_FRAMES frames, AUDIO_MAX_LEN tokens); whisper-base's engine holds
+# AUDIO_MAX_LEN positions and AUDIO_FRAMES seeded cross-cache rows
+SERVE_MESH_RUNS = ((ARCH, False, BATCH, 64, 16, True), (ARCH, False, 1, 8, 4, False),
+                   (HYBRID_ARCH, True, BATCH, 64, 8, True),
+                   (AUDIO_ARCH, False, BATCH, 16, 8, True), (AUDIO_ARCH, False, 1, 8, 4, True))
 
 
 def emit(obj) -> None:
@@ -735,7 +754,8 @@ def check_decode_partial(gen, *, b, h, kvh, d, s, dtype, label) -> dict:
     plain version (out) and the whole-cache partial's lse. Device ms (graph
     replay) of the partial entry and of each split's launches + combine,
     beside their bounds, at every kv_len; of its plain version and of
-    ``sdpa`` on the same rows, and its eager ms, at the first."""
+    ``sdpa`` on the same rows, and its and each split's eager ms (and the
+    split's plain version), at the first."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_partial,
                                                   flash_decode_partial_plain, flash_decode_plain,
@@ -799,6 +819,16 @@ def check_decode_partial(gen, *, b, h, kvh, d, s, dtype, label) -> dict:
             err["bound_ms"], err["bound_by"] = decode_bound(b, h, kvh, d, kv_len, esize,
                                                             esize * b * h * d, dtype)
             err["device_ms"] = device_ms(split, launches=5)
+            if kv_len == PARTIAL_KV_LENS[0]:
+                def split_plain():
+                    parts = [flash_decode_partial_plain(q, k_, v_, n_) for k_, v_, n_ in shards]
+                    return combine_partials(torch.stack([o for o, _ in parts]),
+                                            torch.stack([x for _, x in parts]))
+
+                # the library's call for the same function: sdpa over the
+                # whole cache's first kv_len rows (timed above)
+                err.update(call_ms=call_ms(split), plain_ms=device_ms(split_plain),
+                           library_ms=one["library_ms"])
             one["splits"][n] = err
         row["by_kv_len"][kv_len] = one
     # the row's own numbers: the first kv_len's (543, inside a middle shard)
@@ -3654,6 +3684,60 @@ def phase_pipeline(cfg) -> dict:
     return launches
 
 
+def mesh_prefill(model, batch: dict, counters) -> dict:
+    """The prefill step on ``batch``, called twice, each call on the host
+    clock around a synchronize: the launches of the first (every counter's,
+    and by route where a counter has them, reset just before it), its
+    last-position logits, one more call under the profiler (the device's
+    kernel-time sum), the peak memory of the three, the seconds of all."""
+    from repro_torch.serve.step import make_prefill_step
+
+    t_start = time.perf_counter()
+    prefill = make_prefill_step(model)
+    by_route = [c for c in counters if hasattr(c, "launches_by_route")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_ms = []
+    for _ in range(2):
+        for c in counters:
+            c.launches = 0
+        for c in by_route:
+            c.launches_by_route = dict.fromkeys(c.launches_by_route, 0)
+        t = time.perf_counter()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        if len(host_ms) == 1:
+            first = logits[:, 0].float()
+            launches = {c.__name__: c.launches for c in counters}
+            routes_ = {c.__name__: dict(c.launches_by_route) for c in by_route}
+    prof = profile_step(lambda: prefill(batch))
+    return {"logits": first, "launches": launches, "by_route": routes_,
+            "host_ms_first": host_ms[0], "host_ms_second": host_ms[1],
+            "device_ms": prof["device_ms"], "profile_top": prof["top"][:6],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t_start}
+
+
+def mesh_prefill_want(cfg) -> tuple[dict, dict]:
+    """The prefill step's launches (and K4's and K5's by route) as the path
+    designs them: K1 a layer (whisper-base's encoder, self- and
+    cross-attention), K5 a Mamba-2 block on the mma route, K4 a shared-block
+    call on the tiled route (T = BATCH x PROMPT_LEN)."""
+    want = dict.fromkeys(("flash_attention", "ssd_scan", "fused_ffn", "flash_decode",
+                          "flash_decode_partial"), 0)
+    if cfg.family == "audio":
+        want["flash_attention"] = cfg.n_encoder_layers + 2 * cfg.n_layers
+    elif cfg.family == "hybrid":
+        n_shared = cfg.n_layers // cfg.attn_every
+        want.update(flash_attention=n_shared, ssd_scan=cfg.n_layers, fused_ffn=n_shared)
+    else:
+        want["flash_attention"] = cfg.n_layers
+    by_route = {"fused_ffn": {"tiled": want["fused_ffn"], "rowtile": 0},
+                "ssd_scan": {"mma": want["ssd_scan"], "fma": 0}}
+    return want, by_route
+
+
 def phase_serve_mesh(configs) -> dict:
     """SERVE_MESH_RUNS through ``launch.serve.ServingEngine``, kernel path,
     bf16, seeded weights: run A without a mesh, run B on the same weights
@@ -3662,32 +3746,45 @@ def phase_serve_mesh(configs) -> dict:
     B's tokens must equal A's; its logits (prefill and last step) within
     LOGIT_ATOL of A's, the largest difference reported (one rank runs the
     same kernels on the same rows: equal to the bit is expected); its K3
-    launches (whole-cache and partial entries together) and K4 launches
-    equal to A's, all on the partial entry at batch 1 (the sequence over
-    "data") and none there at batch 4; every cache leaf a DTensor in
-    ``cache_shardings``' placements. Per run: host ms a decode step (each
-    step timed around a synchronize; the median and the first), device ms
-    of one more step (the profiler's kernel-time sum), peak memory."""
+    launches (whole-cache and partial entries together, self and cross
+    attention for whisper-base) and K4 launches equal to A's, all on the
+    partial entry at batch 1 (the sequence over "data") and none there at
+    batch 4; every cache leaf a DTensor in ``cache_shardings``' placements.
+    whisper-base's cross caches hold the same seeded rows in both runs,
+    written into each DTensor's local shard on the mesh
+    (``layers.copy_into``). Where the run takes the prefill step
+    (``mesh_prefill``), B's last-position logits must agree with A's within
+    LOGIT_ATOL and its launches (K1, K5 and K4, by route too) equal A's and
+    ``mesh_prefill_want``'s. Per run: host ms a decode step (each step
+    timed around a synchronize; the median and the first), device ms of one
+    more step (the profiler's kernel-time sum), peak memory; the prefill
+    step's host ms (first and second call), device ms and peak."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
     from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import LanguageModel
+    from repro_torch.models.layers import copy_into
     from repro_torch.sharding.partition import cache_shardings
 
     t_start = time.perf_counter()
     free_memory()
     counters = (flash_decode, flash_decode_partial, fused_ffn)
+    prefill_counters = (flash_attention, ssd_scan, fused_ffn, flash_decode, flash_decode_partial)
     t0 = time.perf_counter()
     mesh = make_host_mesh()
     mesh_s = time.perf_counter() - t0
-    rows, totals = [], dict.fromkeys((c.__name__ for c in counters), 0)
+    rows, totals = [], dict.fromkeys((c.__name__ for c in prefill_counters), 0)
     weights = {}      # one seeded init an arch, shared by its runs
-    for arch, fused, batch, prompt_len, steps in SERVE_MESH_RUNS:
+    for arch, fused, batch, prompt_len, steps, with_prefill in SERVE_MESH_RUNS:
+        t_run = time.perf_counter()
         cfg = configs.get(arch)
+        audio = cfg.family == "audio"
         model = LanguageModel(cfg, impl="kernel", fused_ffn=fused)
         if arch not in weights:
             weights.clear()
@@ -3695,8 +3792,21 @@ def phase_serve_mesh(configs) -> dict:
             model.init(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
             weights[arch] = model.params
         model.load_params(weights[arch])
+        gen = torch.Generator(device="cuda").manual_seed(2)
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device="cuda",
-                                generator=torch.Generator(device="cuda").manual_seed(2))
+                                generator=gen)
+        max_len, enc_len = (AUDIO_MAX_LEN, AUDIO_FRAMES) if audio else (MAX_LEN, 0)
+        cross = {k: randn(gen, (cfg.n_layers, batch, AUDIO_FRAMES, cfg.n_kv_heads,
+                                cfg.head_dim), torch.bfloat16)
+                 for k in ("cross_k", "cross_v")} if audio else {}
+        pbatch = None
+        if with_prefill:
+            pb = batch if audio else BATCH
+            pbatch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                              (pb, AUDIO_MAX_LEN if audio else PROMPT_LEN),
+                                              device="cuda", generator=gen)}
+            if audio:
+                pbatch["frames"] = randn(gen, (pb, AUDIO_FRAMES, cfg.d_model), torch.bfloat16)
         drive_steps = prompt_len + steps - 1
 
         def run(on_mesh):
@@ -3705,7 +3815,10 @@ def phase_serve_mesh(configs) -> dict:
                 m = LanguageModel(cfg, impl="kernel", fused_ffn=fused).load_params(model.params)
             free_memory()
             torch.cuda.reset_peak_memory_stats()
-            engine = ServingEngine(m, batch, MAX_LEN, mesh=mesh if on_mesh else None)
+            engine = ServingEngine(m, batch, max_len, enc_len=enc_len,
+                                   mesh=mesh if on_mesh else None)
+            for k, v in cross.items():
+                copy_into(engine.cache[k], v)
             decode, step_ms = engine.decode, []
 
             def timed(*args):
@@ -3725,9 +3838,12 @@ def phase_serve_mesh(configs) -> dict:
             launches = {c.__name__: c.launches for c in counters}
             engine.decode = decode
             prof = profile_step(lambda: engine.decode(engine.cache, prompts[:, :1], drive_steps))
-            return {"engine": engine, "tokens": toks, "launches": launches, "step_ms": step_ms,
-                    "device_ms": prof["device_ms"], "profile": prof,
-                    "peak_bytes": torch.cuda.max_memory_allocated()}
+            out = {"engine": engine, "tokens": toks, "launches": launches, "step_ms": step_ms,
+                   "device_ms": prof["device_ms"], "profile": prof,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            if pbatch is not None:
+                out["prefill"] = mesh_prefill(m, pbatch, prefill_counters)
+            return out
 
         a = run(False)
         b = run(True)
@@ -3739,7 +3855,8 @@ def phase_serve_mesh(configs) -> dict:
                                     getattr(eb, part), getattr(ea, part))
                  for part in ("prefill_logits", "last_logits")}
         la, lb = a["launches"], b["launches"]
-        calls = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+        calls = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                 else 2 * cfg.n_layers if audio else cfg.n_layers)
         k3_a = la["flash_decode"] + la["flash_decode_partial"]
         k3_b = lb["flash_decode"] + lb["flash_decode_partial"]
         on_partial = lb["flash_decode_partial"] if batch == 1 else lb["flash_decode"]
@@ -3759,20 +3876,52 @@ def phase_serve_mesh(configs) -> dict:
                     "decode_ms_device": r["device_ms"], "peak_bytes": r["peak_bytes"],
                     "profile_top": r["profile"]["top"][:6]}
 
-        rows.append({"arch": cfg.name, "n_layers": cfg.n_layers, "fused_ffn": fused,
-                     "batch": batch, "prompt_len": prompt_len, "gen_steps": steps,
-                     "max_len": MAX_LEN, "tokens_equal": True,
-                     "logit_max_abs_diff": diffs,
-                     "logits_bit_equal": all(torch.equal(getattr(ea, p), getattr(eb, p))
-                                             for p in diffs),
-                     "launches": lb, "launches_no_mesh": la, "cache_placements": placed,
-                     "no_mesh": times(a), "mesh_run": times(b),
-                     "mesh_minus_no_mesh_ms": {
-                         "host_median": times(b)["decode_ms_host_median"]
-                         - times(a)["decode_ms_host_median"],
-                         "device": b["device_ms"] - a["device_ms"]}})
+        row = {"arch": cfg.name, "n_layers": cfg.n_layers, "fused_ffn": fused,
+               "batch": batch, "prompt_len": prompt_len, "gen_steps": steps,
+               "max_len": max_len, "tokens_equal": True,
+               "logit_max_abs_diff": diffs,
+               "logits_bit_equal": all(torch.equal(getattr(ea, p), getattr(eb, p))
+                                       for p in diffs),
+               "launches": lb, "launches_no_mesh": la, "cache_placements": placed,
+               "no_mesh": times(a), "mesh_run": times(b),
+               "mesh_minus_no_mesh_ms": {
+                   "host_median": times(b)["decode_ms_host_median"]
+                   - times(a)["decode_ms_host_median"],
+                   "device": b["device_ms"] - a["device_ms"]}}
+        if audio:
+            row.update(n_encoder_layers=cfg.n_encoder_layers, enc_len=enc_len,
+                       cross_caches="the same seeded rows in both runs, written into each "
+                                    "DTensor's local shard on the mesh")
         for c, n in lb.items():
             totals[c] += n
+        if pbatch is not None:
+            pa, pb_ = a["prefill"], b["prefill"]
+            want_p, want_routes = mesh_prefill_want(cfg)
+            if pa["launches"] != want_p or pb_["launches"] != want_p or (
+                    pa["by_route"] != pb_["by_route"] or pa["by_route"] != want_routes):
+                raise AssertionError(f"{name}: prefill step launches {pb_['launches']} "
+                                     f"{pb_['by_route']} through the mesh, {pa['launches']} "
+                                     f"{pa['by_route']} without, expected {want_p} {want_routes}")
+            err = logits_agree(f"{name}: prefill step logits, mesh vs none", pb_["logits"],
+                               pa["logits"])
+
+            def ptimes(r):
+                return {k: r[k] for k in ("host_ms_first", "host_ms_second", "device_ms",
+                                          "peak_bytes", "seconds", "profile_top")}
+
+            row["prefill_step"] = {
+                "shape": {k: list(v.shape) for k, v in pbatch.items()},
+                "launches": pb_["launches"], "launches_no_mesh": pa["launches"],
+                "launches_by_route": pb_["by_route"], "logit_max_abs_diff": err,
+                "logits_bit_equal": bool(torch.equal(pa["logits"], pb_["logits"])),
+                "no_mesh": ptimes(pa), "mesh_run": ptimes(pb_),
+                "mesh_minus_no_mesh_ms": {
+                    "host_second": pb_["host_ms_second"] - pa["host_ms_second"],
+                    "device": pb_["device_ms"] - pa["device_ms"]}}
+            for c, n in pb_["launches"].items():
+                totals[c] += n
+        row["run_s"] = time.perf_counter() - t_run
+        rows.append(row)
         del a, b, ea, eb, model
         free_memory()
     weights.clear()

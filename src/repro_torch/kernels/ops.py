@@ -15,11 +15,12 @@ Under a device mesh the kernels take local shards (``local_map``):
   psums do for the reference;
 * ``fused_ffn_op`` (K4) runs on each rank's rows and its slice of "ff",
   the weights' "embed" gathered (FSDP), and all-reduces the partial sums
-  over "model" (``ffn_on_local_shards``: Megatron's row-parallel output).
+  over "model" (``ffn_on_local_shards``: Megatron's row-parallel output);
+* ``ssd_scan_op`` (K5) runs on each rank's batch rows, A replicated
+  (``ssd_scan_on_local_shards``), forward only as off a mesh.
 
-K5 refuses a ``DTensor``: its mesh path is item 14c's, and a Mamba-2 layer
-trains through a mesh on the naive scan (``models.ssm``). On a CUDA shard
-each op launches its kernel or raises; nothing falls back to a plain version.
+On a CUDA shard each op launches its kernel or raises; nothing falls back to
+a plain version.
 """
 from __future__ import annotations
 
@@ -128,14 +129,6 @@ def attention_on_local_shards(fn, q, k, v):
     return local_map(local, out_placements=q_layout, in_placements=(q_layout, kv_layout, kv_layout),
                      in_grad_placements=(q_layout, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
-
-
-def refuse_dtensor(what: str, waits_for: str, *tensors) -> None:
-    """Raise on a ``DTensor`` argument: the kernel takes a whole tensor on one
-    device, and the path that would shard its inputs is not ported."""
-    if any(isinstance(t, DTensor) for t in tensors):
-        raise NotImplementedError(f"{what}: no sharded path under a device mesh yet "
-                                  f"({waits_for}); call it with plain tensors")
 
 
 def flash_decode_op(q, k, v, kv_len, *, scale=None):
@@ -255,22 +248,38 @@ def decode_on_local_shards(q, k, v, kv_len, scale=None, whole=None, partial=None
                      redistribute_inputs=True)(q, k, v)
 
 
-# what K5 on a mesh waits for: training takes the naive scan (K5 is forward only)
-SSD_SCAN_WAITS_FOR = "K5 and the hybrid prefill through a mesh are item 14c's"
-
-
 def ssd_scan_op(x, dt, A, b_, c_):
     """x (B,S,H,P), dt (B,S,H), A (H,), b_/c_ (B,S,N) -> (y (B,S,H,P),
     final state (B,H,P,N) fp32), from a zero state. Forward only, on either
     device: the reference has no backward for this kernel, so inputs that
     require grad are refused; ``models.ssm.ssd_chunked`` is the
-    differentiable path."""
-    refuse_dtensor("ssd_scan", SSD_SCAN_WAITS_FOR, x, dt, A, b_, c_)
+    differentiable path. ``DTensor`` inputs run on their local shards
+    (``ssd_scan_on_local_shards``)."""
+    if any(isinstance(t, DTensor) for t in (x, dt, A, b_, c_)):
+        return ssd_scan_on_local_shards(x, dt, A, b_, c_)
     if x.is_cuda:
         return ssd_scan(*(a.contiguous() for a in (x, dt, A, b_, c_)))
     _check_ssd(x, dt, A, b_, c_)
     build.refuse_grad("ssd_scan", x, dt, A, b_, c_)
     return ssd_scan_plain(x, dt, A, b_, c_)
+
+
+def ssd_scan_on_local_shards(x, dt, A, b_, c_):
+    """``ssd_scan_op`` on ``DTensor``s: x, dt, b_ and c_ with their batch
+    rows over "data" (where B divides it, else replicated) and the whole
+    sequence, A replicated, each redistributed to that layout. The scan runs
+    along the sequence and mixes no rows, so each rank runs K5 on its rows
+    alone; y and the final state come back with their rows over "data"."""
+    if not all(isinstance(t, DTensor) for t in (x, dt, A, b_, c_)):
+        raise NotImplementedError("ssd_scan on a mesh takes x, dt, A, b_ and c_ as DTensors "
+                                  "on one mesh")
+    mesh = x.device_mesh
+    sizes = mesh_sizes(mesh)
+    rows = role_placements(mesh, Shard(0) if "data" in sizes and x.shape[0] % sizes["data"] == 0
+                           else None)
+    return local_map(ssd_scan_op, out_placements=(rows, rows),
+                     in_placements=(rows, rows, role_placements(mesh), rows, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(x, dt, A, b_, c_)
 
 
 def fused_ffn_op(x, w_gate, w_up, w_down):

@@ -10,6 +10,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --mesh-model 1
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --mesh-model 1
+
 Runs on the card; ``--device cpu`` runs the same path with the kernels' plain
 versions (for the smoke configs, ``--arch tinyllama-1.1b-smoke`` or
 ``--arch zamba2-1.2b-smoke``). ``--fused-ffn`` sends every SwiGLU MLP through
@@ -28,8 +30,10 @@ default), the cache in ``cache_shardings``' (the sequence over "data" at
 batch 1, as ``launch/specs`` shards a batch-1 cell's), every rank drawing
 the same tokens. One process starts its own one-rank group (NCCL on the
 card, gloo with ``--device cpu``); several ranks are started by
-``torchrun``. Every family serves so but ``audio`` (item 14c). Without
-``--mesh-model`` nothing is distributed: one device, plain tensors.
+``torchrun``. Every family serves so, the encoder-decoder with its cross
+caches placed as the self caches are (zeros, as the reference's engine
+leaves them). Without ``--mesh-model`` nothing is distributed: one device,
+plain tensors.
 """
 from __future__ import annotations
 
@@ -48,17 +52,6 @@ from repro_torch.models.attention import IMPLS
 from repro_torch.serve.step import make_decode_step
 from repro_torch.sharding.partition import cache_shardings, device_put, param_shardings
 
-# what serving the encoder-decoder through a mesh waits for
-AUDIO_MESH_WAITS_FOR = ("the audio family through a mesh (its cross caches, K5 and the hybrid "
-                        "prefill beside it) is item 14c's")
-
-
-def refuse_audio_on_a_mesh(cfg) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(f"{cfg.name}: no serving through a device mesh for the "
-                                  f"encoder-decoder yet: {AUDIO_MESH_WAITS_FOR}")
-
-
 class ServingEngine:
     """Minimal batched engine over the decode step. The cache (KV, MLA's
     latent, or conv and SSM state) lives on the model's device, in the model's dtype except the
@@ -68,8 +61,9 @@ class ServingEngine:
 
     With a device ``mesh`` the engine places the model's parameters on it
     (``param_shardings``, FSDP) and its cache (``cache_shardings``; the
-    sequence over "data" at batch 1), both ``DTensor``s; the prompts are
-    the same on every rank, and so are the tokens it returns."""
+    sequence over "data" at batch 1; the encoder-decoder's cross caches
+    too), both ``DTensor``s; the prompts are the same on every rank, and so
+    are the tokens it returns."""
 
     def __init__(self, model: LanguageModel, batch: int, max_len: int,
                  sample: str = "greedy", temperature: float = 1.0, top_k: int = 0,
@@ -80,7 +74,6 @@ class ServingEngine:
         self.mesh = mesh
         cache = model.init_cache(batch, max_len, enc_len=enc_len)
         if mesh is not None:
-            refuse_audio_on_a_mesh(model.cfg)
             model.load_params(device_put(model.params, param_shardings(
                 model.axes(), model.specs(), mesh, fsdp=True)))
             cache = device_put(cache, cache_shardings(cache, mesh, shard_seq=batch == 1))
@@ -157,7 +150,6 @@ def main(argv=None):
     cfg = configs.get(args.arch)
     mesh = None
     if args.mesh_model is not None:
-        refuse_audio_on_a_mesh(cfg)
         mesh = make_host_mesh(model=args.mesh_model, device=device)
     model = LanguageModel(cfg, impl=args.impl, fused_ffn=args.fused_ffn)
     model.init(torch.Generator(device=device).manual_seed(0), device=device)

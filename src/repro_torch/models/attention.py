@@ -208,7 +208,8 @@ def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
     ``"naive"`` the plain ``decode_attention`` the reference takes. An empty
     cache (S_enc = 0) adds nothing, as the reference's sum over no keys.
     A ``DTensor`` cache is read where it lies, as ``gqa_decode`` reads its
-    own (the encoder-decoder's mesh path, which fills it, is item 14c's)."""
+    own: at batch 1 its sequence lies over "data" (``cache_shardings``), and
+    each rank runs K3's partial entry at its share of kv_len = S_enc."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not one of {IMPLS}")
     b, enc_len = x.shape[0], cross_k.shape[1]

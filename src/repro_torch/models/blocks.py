@@ -140,17 +140,22 @@ def decoder_block(params, cfg: ModelConfig, x, enc_out, positions, impl="kernel"
                   fused=False):
     """Causal self-attention, then cross-attention (queries from the
     decoder, keys and values from ``enc_out``, no rotary embedding, no
-    mask), then the SwiGLU FFN."""
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    x = x + attn.gqa_attention(params["attn"], cfg, h, positions, causal=True, impl=impl)
-    h = rmsnorm(params["ln_cross"], x, cfg.norm_eps)
+    mask), then the SwiGLU FFN. Under a mesh the stream is sequence-parallel
+    around all three, as in ``dense_block``; ``enc_out`` is read with its
+    whole sequence for the cross keys and values, and a projection whose
+    heads do not divide "model" is read whole (``attention.whole_heads``)."""
+    h = sp_gather(rmsnorm(params["ln1"], x, cfg.norm_eps))
+    x = x + sp_boundary(attn.gqa_attention(params["attn"], cfg, h, positions, causal=True,
+                                           impl=impl))
+    h = sp_gather(rmsnorm(params["ln_cross"], x, cfg.norm_eps))
+    enc = sp_gather(enc_out)
     b, s, _ = h.shape
-    s_enc = enc_out.shape[1]
-    cross = params["cross"]
-    q = (h @ cross["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (enc_out @ cross["wk"]).reshape(b, s_enc, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ cross["wv"]).reshape(b, s_enc, cfg.n_kv_heads, cfg.head_dim)
+    s_enc = enc.shape[1]
+    cross, hd = params["cross"], cfg.head_dim
+    q = attn.whole_heads(h @ cross["wq"], cfg.n_heads).reshape(b, s, cfg.n_heads, hd)
+    k = attn.whole_heads(enc @ cross["wk"], cfg.n_kv_heads).reshape(b, s_enc, cfg.n_kv_heads, hd)
+    v = attn.whole_heads(enc @ cross["wv"], cfg.n_kv_heads).reshape(b, s_enc, cfg.n_kv_heads, hd)
     o = attn.sdpa(q, k, v, causal=False, impl=impl)
-    x = x + o.reshape(b, s, -1) @ cross["wo"]
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + ffn(params["ffn"], h, fused=fused)
+    x = x + sp_boundary(o.reshape(b, s, -1) @ cross["wo"])
+    h = sp_gather(rmsnorm(params["ln2"], x, cfg.norm_eps))
+    return x + sp_boundary(ffn(params["ffn"], h, fused=fused))

@@ -32,22 +32,27 @@ model trains with K1/K2 attention beside the naive scan (``scan="naive"``,
 as ``launch/train`` builds it). ``fused_ffn=True`` runs every SwiGLU MLP
 but the routed experts through K4 (forward only).
 
-Every family but ``audio`` also trains through a device mesh: parameters
-and batch as ``DTensor``s (``sharding.partition``), the residual stream
-sequence-parallel between blocks (``sp_boundary``), attention on each
-rank's shards (``kernels.ops``), the routed experts over "model"
-(``models.moe``), the Mamba-2 mixer on each rank's rows with its weights
-replicated (``models.ssm``; the naive scan: K5 refuses a mesh). The same
-families but ``audio`` decode through a mesh: ``decode_step`` takes
+Every family but ``audio`` (whose batch the data pipeline cannot make)
+also trains through a device mesh: parameters and batch as ``DTensor``s
+(``sharding.partition``), the residual stream sequence-parallel between
+blocks (``sp_boundary``), attention on each rank's shards
+(``kernels.ops``), the routed experts over "model" (``models.moe``), the
+Mamba-2 mixer on each rank's rows with its weights replicated
+(``models.ssm``; the naive scan in training, K5 in the forward alone).
+Every family, ``audio`` too, runs its forward (the prefill step) through a
+mesh, the encoder-decoder with the reference's boundaries around each
+encoder and decoder block; and decodes through one: ``decode_step`` takes
 ``DTensor`` caches in ``cache_shardings``' placements (``cache["k"][i]`` is
 a view of the stacked cache's local shard, so a layer's writes reach it),
-each attention reading its cache where it lies (``models.attention``), the
-Mamba-2 states updated on each rank's rows, K4 on each rank's F-slice.
+each attention reading its cache where it lies (``models.attention``; the
+encoder-decoder's cross caches too), the Mamba-2 states updated on each
+rank's rows, K4 on each rank's F-slice.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -59,7 +64,7 @@ from repro_torch.models.layers import (chunked_cross_entropy, embed, embedding_s
                                        ffn, logits_for_tokens, rmsnorm, rmsnorm_specs)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import SCANS
-from repro_torch.sharding.partition import sp_boundary
+from repro_torch.sharding.partition import place_batch, sp_boundary
 
 REMATS = ("none", "dots", "full")
 # what remat "dots" keeps: the outputs of the matrix products, as
@@ -274,16 +279,23 @@ class LanguageModel(nn.Module):
         bf16 whatever the parameters' dtype, as the reference casts them
         (``lm.py:_forward_audio``): with fp32 parameters the first encoder
         block's first norm stays bf16 and its residual turns the stream
-        fp32, as JAX's promotion does (``attention.gqa_project_qkv``)."""
+        fp32, as JAX's promotion does (``attention.gqa_project_qkv``). Under
+        a mesh, frames given as a plain tensor (the same on every rank) are
+        placed as a prefill cell's batch (``sharding.place_batch``)."""
         cfg, params = self.cfg, self.params
         frames = batch["frames"]
+        leaf = params["ln_f"]["scale"]
+        if isinstance(leaf, DTensor) and not isinstance(frames, DTensor):
+            frames = place_batch(frames, leaf.device_mesh)
         b, s_enc, _ = frames.shape
         enc_pos = torch.arange(s_enc, dtype=torch.int32, device=frames.device).expand(b, s_enc)
         x = frames.to(torch.bfloat16)
 
+        # the reference's sequence-parallel boundaries around each encoder and
+        # decoder block (its lm.py:172-191): no-ops without a mesh
         def enc_body(x_, p_):
-            return blocks.encoder_block(p_, cfg, x_, enc_pos, impl=self.impl,
-                                        fused=self.fused_ffn)
+            return sp_boundary(blocks.encoder_block(p_, cfg, sp_boundary(x_), enc_pos,
+                                                    impl=self.impl, fused=self.fused_ffn))
 
         for p in _unbind_layers(params["enc_layers"], cfg.n_encoder_layers):
             x = _maybe_remat(enc_body, self.remat, x, p)
@@ -295,8 +307,8 @@ class LanguageModel(nn.Module):
         y = embed(params["emb"], tokens)
 
         def dec_body(y_, p_, enc_):
-            return blocks.decoder_block(p_, cfg, y_, enc_, dec_pos, impl=self.impl,
-                                        fused=self.fused_ffn)
+            return sp_boundary(blocks.decoder_block(p_, cfg, sp_boundary(y_), enc_, dec_pos,
+                                                    impl=self.impl, fused=self.fused_ffn))
 
         for p in _unbind_layers(params["layers"], cfg.n_layers):
             y = _maybe_remat(dec_body, self.remat, y, p, enc_out)

@@ -22,8 +22,10 @@ Under a device mesh (a ``DTensor`` input) the mixer runs on each rank's
 batch rows with every one of its weights replicated (``layers.on_rows``):
 the conv and the scan read the whole sequence, and ``in_proj``'s
 ``[z | x | B | C | dt]`` column slices cut across its shards over "model".
-The weights stay stored in their placements ("ff" over "model", "embed"
-over "data"), and their gradients are partial sums over "data".
+Either scan runs there on the rank's rows: the naive one in training, K5
+in the prefill. The weights stay stored in their placements ("ff" over
+"model", "embed" over "data"), and their gradients are partial sums over
+"data".
 """
 from __future__ import annotations
 
@@ -105,14 +107,11 @@ def mamba2_forward(params, cfg: ModelConfig, x, chunk: int | None = None, scan: 
     """Full Mamba-2 mixer over (B,S,d). Returns (y, (conv_state, ssm_state)).
     ``scan="naive"`` scans with ``ssd_chunked`` (chunk ``cfg.ssm_chunk``),
     ``scan="kernel"`` with K5 (its own chunk length). A ``DTensor`` ``x``
-    runs on each rank's rows (see the module's note), with the naive scan
-    only: K5 through a mesh refuses, as ``kernels.ops.ssd_scan_op`` does."""
+    runs on each rank's rows (see the module's note) with either scan: K5
+    takes the rank's rows as plain tensors, forward only."""
     if scan not in SCANS:
         raise ValueError(f"scan {scan!r} not one of {SCANS}")
     if isinstance(x, DTensor):
-        if scan == "kernel":
-            kops.refuse_dtensor("ssd_scan", kops.SSD_SCAN_WAITS_FOR, x)
-
         def local(params_, x_):
             y, (conv_state, ssm_state) = _mamba2(params_, cfg, x_, chunk, scan)
             return y, conv_state, ssm_state

@@ -1,10 +1,12 @@
 """Serving steps: prefill (full-sequence forward) and decode (one token).
 
 Sampling is greedy/temperature/top-k on fp32 logits. Both steps run without
-autograd. Under a device mesh (the model's parameters ``DTensor``s) the
-decode step places its tokens as ``launch/specs`` places a decode cell's
-(``place_tokens``) and brings the logits back replicated before argmax or
-sampling, so every rank draws the same tokens.
+autograd. Under a device mesh (the model's parameters ``DTensor``s) each
+step places its inputs as ``launch/specs`` places its cell's: the prefill
+step its batch (``sharding.place_batch``: tokens, positions, patch
+embeddings, frames), the decode step its tokens (``place_tokens``); both
+hand back plain logits, the same on every rank, so every rank draws the
+same tokens.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.layers import logits_for_tokens
-from repro_torch.sharding.partition import NamedSharding, batch_spec
+from repro_torch.sharding.partition import NamedSharding, batch_spec, place_batch
 
 
 def model_mesh(model):
@@ -35,9 +37,16 @@ def make_prefill_step(model):
     @torch.no_grad()
     def prefill(batch):
         """Runs the full-sequence forward and returns the logits of the last
-        position, (B,1,V)."""
+        position, (B,1,V). Under a mesh the batch's tensors, the same on
+        every rank, are placed first (a ``DTensor`` is kept as it lies), and
+        the logits come back a plain tensor, the same on every rank."""
+        mesh = model_mesh(model)
+        if mesh is not None:
+            batch = {k: v if isinstance(v, DTensor) else place_batch(v, mesh)
+                     for k, v in batch.items()}
         h, _ = model.forward(batch)
-        return logits_for_tokens(model.params["emb"], h[:, -1:, :])
+        logits = logits_for_tokens(model.params["emb"], h[:, -1:, :])
+        return logits.full_tensor() if isinstance(logits, DTensor) else logits
 
     return prefill
 

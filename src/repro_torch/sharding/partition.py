@@ -21,7 +21,8 @@ and "model", for the ops that run on local shards.
 
 The rules read only the mesh's dim names and sizes (``mesh_dim_names``,
 ``shape``), so they are pure functions of shapes and mesh sizes.
-``device_put`` places a tree on its shardings. ``constrain``,
+``device_put`` places a tree on its shardings, ``place_batch`` a batch
+that every rank holds whole. ``constrain``,
 ``sp_boundary`` and ``sp_gather`` redistribute a ``DTensor`` and hand any
 other tensor back unchanged, which keeps every single-device path as it is.
 """
@@ -133,6 +134,16 @@ def batch_spec(mesh, seq_sharded: bool = False) -> Spec:
     if seq_sharded:
         return (None, ("data",))
     return (batch_axes if len(batch_axes) > 1 else batch_axes[0],)
+
+
+def place_batch(t, mesh) -> DTensor:
+    """A batch tensor (B, ...), the same on every rank, as a ``DTensor``
+    placed as ``launch/specs.input_specs`` places a prefill cell's batch:
+    rows over (pod, data) (``batch_spec``) where B divides them, replicated
+    where it does not (``fit``), replicated over "model". Each rank keeps
+    its own rows; nothing is sent."""
+    spec = fit(t.shape, batch_spec(mesh), mesh)
+    return distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None)
 
 
 def cache_shardings(cache_tree, mesh, shard_seq: bool = False):

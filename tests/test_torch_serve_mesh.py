@@ -3,7 +3,7 @@
 ``cache_shardings``' placements, held against the port's unsharded engine
 and the reference's ``LanguageModel.decode_step`` on the same weights.
 
-One 4-rank ``gloo`` launch (``test_torch_sharding.run_ranks``) serves six
+One 4-rank ``gloo`` launch (``test_torch_sharding.run_ranks``) serves nine
 mesh/config cases and records what the tests below read; each test process
 holds its own side (the unsharded port, the reference) against it:
 
@@ -19,8 +19,20 @@ holds its own side (the unsharded port, the reference) against it:
   the MoE through ``models.moe._moe_on_mesh``;
 * qwen3-moe-235b-a22b smoke on (2, 2);
 * granite-3-2b smoke on (1, 4) again at ``impl="naive"``: the oracle
-  decode on each rank's shards, combined the same way.
+  decode on each rank's shards, combined the same way;
+* whisper-base smoke (the encoder-decoder) on (2, 2): the self and cross
+  caches batch over "data", KV heads over "model";
+* whisper-base smoke at batch 1 on (4, 1): the self and cross caches'
+  sequences over "data", so the cross-attention combines K3's partial
+  results at kv_len = ENC_LEN.
+
+The encoder-decoder's cross caches hold seeded values (``cross_values``),
+written alike into the engine's cache on the mesh (each rank's local
+shard), into the unsharded engine's and into the reference's: the engines
+leave them at zero, as the reference's does.
 """
+import contextlib
+import functools
 import inspect
 import json
 import textwrap
@@ -48,19 +60,55 @@ CASES = {
     "deepseek_v2_1x4_mla_latent_seq": ("deepseek-v2-236b-smoke", (1, 4), 2, False, "kernel"),
     "qwen3_moe_2x2": ("qwen3-moe-235b-a22b-smoke", (2, 2), 2, False, "kernel"),
     "granite_1x4_seq_over_model_naive": ("granite-3-2b-smoke", (1, 4), 2, False, "naive"),
+    "whisper_2x2_cross_caches": ("whisper-base-smoke", (2, 2), 2, False, "kernel"),
+    "whisper_4x1_batch1_seq_over_data": ("whisper-base-smoke", (4, 1), 1, False, "kernel"),
 }
 # the cache holds MAX_LEN rows, 4 a shard over 4 ranks; the engine writes
 # positions 0 .. PROMPT + STEPS - 2
 PROMPT, STEPS, MAX_LEN = 5, 4, 16
-# main's own run through --mesh-model 2 on the 4 ranks
+# the encoder-decoder's cross caches: ENC_LEN rows, 4 a shard over 4 ranks
+ENC_LEN = 16
+# main's own runs through --mesh-model 2 on the 4 ranks
 MAIN_ARGS = ["--arch", "tinyllama-1.1b-smoke", "--device", "cpu", "--batch", "2",
              "--prompt-len", "4", "--gen", "3", "--max-len", "16"]
-SHARED = ("CASES", "PROMPT", "STEPS", "MAX_LEN", "MAIN_ARGS")
+MAIN_AUDIO_ARGS = ["--arch", "whisper-base-smoke", *MAIN_ARGS[2:]]
+SHARED = ("CASES", "PROMPT", "STEPS", "MAX_LEN", "ENC_LEN", "MAIN_ARGS", "MAIN_AUDIO_ARGS")
 
 
 def prompts(vocab: int, batch: int) -> np.ndarray:
     return np.random.default_rng([vocab, batch]).integers(0, vocab, (batch, PROMPT)).astype(
         np.int32)
+
+
+def cross_values(cfg, batch: int) -> dict:
+    """Seeded fp32 values of the encoder-decoder's cross caches (none for
+    another family): (L, B, ENC_LEN, KVH, D) each."""
+    if cfg.family != "audio":
+        return {}
+    rng = np.random.default_rng([cfg.vocab_size, batch, ENC_LEN])
+    shape = (cfg.n_layers, batch, ENC_LEN, cfg.n_kv_heads, cfg.head_dim)
+    return {k: rng.standard_normal(shape, np.float32) for k in ("cross_k", "cross_v")}
+
+
+def seed_cross(engine) -> None:
+    """``cross_values`` into the engine's cross caches, in place: on a mesh
+    each rank writes its local shard (``layers.copy_into``)."""
+    from repro_torch.models.layers import copy_into
+
+    for k, v in cross_values(engine.model.cfg, engine.batch).items():
+        copy_into(engine.cache[k], torch.tensor(v))
+
+
+@contextlib.contextmanager
+def fp32_init():
+    """``LanguageModel.init`` in fp32 while open, whatever dtype it is asked
+    for (``launch.serve.main`` initialises in bf16)."""
+    init = LanguageModel.init
+    LanguageModel.init = functools.partialmethod(init, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        LanguageModel.init = init
 
 
 def port_model(arch: str, fused: bool, impl: str = "kernel") -> LanguageModel:
@@ -93,7 +141,8 @@ SERVE_RANKS = """
     for name, (arch, shape, batch, fused, impl) in CASES.items():
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
         model = port_model(arch, fused, impl)
-        engine = ServingEngine(model, batch, MAX_LEN, mesh=mesh)
+        engine = ServingEngine(model, batch, MAX_LEN, enc_len=ENC_LEN, mesh=mesh)
+        seed_cross(engine)
         toks = engine.generate(prompts(model.cfg.vocab_size, batch), STEPS)
         want_cache = cache_shardings(engine.cache, mesh, shard_seq=batch == 1)
         want_params = dict(leaves(param_shardings(model.axes(), model.specs(), mesh, fsdp=True)))
@@ -123,8 +172,12 @@ SERVE_RANKS = """
                             "row_reads_back": bool(torch.equal(full[1, :, 9], row)),
                             "nothing_else_written": int((full != 0).sum()) == row.numel()}
 
-    # the entry point: --mesh-model 2 over the 4 ranks, a (2, 2) mesh
+    # the entry point: --mesh-model 2 over the 4 ranks, a (2, 2) mesh; then
+    # the encoder-decoder, its cross caches as the engine leaves them (zeros),
+    # its parameters in fp32 (see test_serve_main_audio_through_a_mesh_...)
     result["main"] = main(MAIN_ARGS + ["--mesh-model", "2"]).tolist()
+    with fp32_init():
+        result["main_audio"] = main(MAIN_AUDIO_ARGS + ["--mesh-model", "2"]).tolist()
     if rank == 0:
         np.savez(out_path, **arrays)
         with open(out_path + ".json", "w") as f:
@@ -141,8 +194,10 @@ def served(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("serve_mesh")
     out = str(tmp / "out.npz")
     shared = "".join(f"{name} = {globals()[name]!r}\n" for name in SHARED)
-    source = "".join(inspect.getsource(f) for f in (prompts, port_model))
-    imports = ("import numpy as np\nimport repro_torch.configs as tconfigs\n"
+    source = "".join(inspect.getsource(f) for f in (prompts, cross_values, seed_cross,
+                                                     fp32_init, port_model))
+    imports = ("import contextlib\nimport functools\n"
+               "import numpy as np\nimport repro_torch.configs as tconfigs\n"
                "from repro_torch.models import LanguageModel\n")
     run_ranks(tmp, 4, imports + shared + source + textwrap.dedent(SERVE_RANKS), out)
     with open(out + ".json") as f:
@@ -154,7 +209,8 @@ def served(tmp_path_factory):
 def unsharded(arch: str, batch: int, fused: bool, impl: str):
     """The port's engine without a mesh on the same weights and prompts."""
     model = port_model(arch, fused, impl)
-    engine = tserve.ServingEngine(model, batch, MAX_LEN)
+    engine = tserve.ServingEngine(model, batch, MAX_LEN, enc_len=ENC_LEN)
+    seed_cross(engine)
     toks = engine.generate(prompts(model.cfg.vocab_size, batch), STEPS)
     return model, engine, toks
 
@@ -166,7 +222,8 @@ def reference(arch: str, model: LanguageModel, batch: int):
     cfg = model.cfg
     jm = JaxLM(jconfigs.get(arch), impl="naive")
     jparams = jax_tree(model.params)
-    cache = jm.init_cache(batch, MAX_LEN, dtype=jnp.float32)
+    cache = jm.init_cache(batch, MAX_LEN, dtype=jnp.float32, enc_len=ENC_LEN)
+    cache.update({k: jnp.asarray(v) for k, v in cross_values(cfg, batch).items()})
     step = jax.jit(jm.decode_step)
     p = prompts(cfg.vocab_size, batch)
     for t in range(PROMPT):
@@ -220,7 +277,8 @@ def test_cache_leaves_lie_in_cache_shardings_and_read_back(served, case):
     """Every cache leaf is a ``DTensor`` in ``cache_shardings``' placements,
     and the whole cache through the mesh equals the unsharded engine's
     within 1e-5: each row written at its position in the shard that holds
-    it, the rows past the last position still zero."""
+    it, the rows past the last position still zero, the encoder-decoder's
+    cross caches as seeded (read, never written)."""
     arch, _, batch, fused, impl = CASES[case]
     _, engine, _ = unsharded(arch, batch, fused, impl)
     result, arrays = served
@@ -231,14 +289,15 @@ def test_cache_leaves_lie_in_cache_shardings_and_read_back(served, case):
     for leaf, want in engine.cache.items():
         full = arrays[f"{case}/cache/{leaf}"]
         np.testing.assert_allclose(full, want.numpy(), atol=1e-5, rtol=0, err_msg=leaf)
-        if leaf not in ("conv", "ssm"):
+        if leaf not in ("conv", "ssm", "cross_k", "cross_v"):
             assert np.abs(full[:, :, last]).max() > 0 and not full[:, :, last + 1:].any(), leaf
 
 
 def test_sequence_sharded_cases_shard_the_sequence(served):
     """The cases meant to combine partial results do shard the sequence:
     over "model" for granite's KV cache and deepseek-v2's latent cache, over
-    "data" at batch 1; the KV heads over "model" for tinyllama on (2, 2)."""
+    "data" at batch 1 (the encoder-decoder's self and cross caches alike);
+    the KV heads over "model" for tinyllama and whisper on (2, 2)."""
     result, _ = served
     cache = {case: result[case]["cache"] for case in CASES}
     assert cache["granite_1x4_seq_over_model"]["k"]["placements"] == ["Shard(1)", "Shard(2)"]
@@ -248,6 +307,10 @@ def test_sequence_sharded_cases_shard_the_sequence(served):
                                                                                "Replicate"]
     assert cache["tinyllama_2x2_kv_heads_over_model"]["k"]["placements"] == ["Shard(1)",
                                                                               "Shard(3)"]
+    for leaf in ("k", "cross_k"):
+        assert cache["whisper_4x1_batch1_seq_over_data"][leaf]["placements"] == ["Shard(2)",
+                                                                                  "Replicate"]
+        assert cache["whisper_2x2_cross_caches"][leaf]["placements"] == ["Shard(1)", "Shard(3)"]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -276,14 +339,17 @@ def test_serve_main_through_a_mesh_equals_it_without(served):
     assert served[0]["main"] == toks.tolist()
 
 
-def test_mesh_model_refuses_the_audio_family_naming_item_14c():
-    """``--mesh-model`` with the encoder-decoder raises before any process
-    group starts, naming the item that brings it; so does the engine."""
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        tserve.main(["--arch", "whisper-base-smoke", "--device", "cpu", "--mesh-model", "1"])
+def test_serve_main_audio_through_a_mesh_equals_it_without(served):
+    """``launch.serve --arch whisper-base-smoke --mesh-model 2`` on the 4
+    ranks ((2, 2); the engine's cross caches of 64 rows placed as the self
+    caches are, zeros) draws the tokens it draws without a mesh. Both sides
+    initialise in fp32: in bf16 the ranks' partial sums over "model" round
+    in another order than one device's, and the smoke model's prefill
+    logits, 2e-3 apart there, flip a greedy token."""
+    with fp32_init():
+        toks = tserve.main(MAIN_AUDIO_ARGS)
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        tserve.refuse_audio_on_a_mesh(tconfigs.get("whisper-base-smoke"))
+    assert served[0]["main_audio"] == toks.tolist()
 
 
 def test_serve_without_mesh_model_starts_no_process_group(capsys):

@@ -380,8 +380,6 @@ TRAIN_2X2 = """
     by_dim = distribute_tensor(torch.randn(2, 64, 4, 16), mesh, [Shard(0), Shard(3)])
     for name, call in (
             ("flash_decode", lambda: ops.flash_decode_op(by_dim[:, 0], by_dim, by_dim, 5)),
-            ("ssd_scan", lambda: ops.ssd_scan_op(x, x[..., 0], x[0, 0, :, 0], x[:, :, 0],
-                                                 x[:, :, 0])),
             ("fused_ffn", lambda: ops.fused_ffn_op(x[:, 0, 0], small.to_local(),
                                                    small.to_local(), small.to_local().T)),
             ("stochastic_rounding", lambda: apply_updates(
@@ -520,8 +518,7 @@ def test_attention_with_kv_heads_replicated_over_model(mesh_2x2, heads):
 
 # what each refusal names: the ROADMAP item that brings the path, the layout
 # the op takes, or the recipe
-REFUSAL_REASONS = {"flash_decode": ["cache_shardings"], "ssd_scan": ["item 14c"],
-                   "fused_ffn": ["DTensors on one mesh"],
+REFUSAL_REASONS = {"flash_decode": ["cache_shardings"], "fused_ffn": ["DTensors on one mesh"],
                    "stochastic_rounding": ["master_weights=True"]}
 
 
