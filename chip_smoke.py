@@ -76,7 +76,9 @@ Phases, one JSON object a line:
            shard's partial at its own length (0 past kv_len) merged by
            kernels.ops.combine_partials, against whole-cache K3 and the plain
            version; device ms (graph replay) of the entry, its plain version,
-           `sdpa` on the same rows and each split, beside their bounds
+           `sdpa` on the same rows and each split, beside their bounds; and
+           both entries (and the dispatch) on an int8 cache: a TypeError
+           naming the dtypes K3 reads, no launch
   serve_hybrid  zamba2-1.2b at full width and depth (38 Mamba-2 blocks, 6
            calls of the shared attention + MLP block), bf16, seeded random
            weights, impl="kernel" with fused_ffn: the prefill step on 4 x 512
@@ -95,16 +97,22 @@ Phases, one JSON object a line:
            K2b once per layer and step), with the losses, step times (host
            clock, and one step replayed as a CUDA graph), tokens/s, MFU and
            peak memory
-  dryrun   launch.dryrun on meta tensors on the host (no kernel launched):
-           tinyllama-1.1b's four grid shapes on the 16 x 16 stand-in mesh
+  dryrun   launch.dryrun on the host (no kernel launched), in a child
+           process of its own, started and awaited here (nothing else runs
+           beside it): each cell's step through the port's mesh path
+           as rank 0 of a fake process group of the mesh's size, on meta
+           tensors; tinyllama-1.1b's four grid shapes on the 16 x 16 mesh
            (three ok, long_500k skipped: the three roofline terms, the
-           dominant one, argument and peak bytes a device, fits), then the
-           train phase's own cell on a (1, 1) stand-in held against that
-           phase: its argument bytes equal to the parameters, optimizer state
-           and batch the phase held, exactly; the dry-run's peak beside the
-           step's max_memory_allocated, the roofline bound (core.hw.H100_SXM,
-           the denominator of every bound and MFU here) beside the step's
-           device time, and useful_flops_cell beside the row's model FLOPs
+           dominant one, argument and peak bytes a device, fits, rank 0's
+           collectives by kind), decode_32k again with an int8 cache (its
+           argument bytes the bf16 cell's less half the cache's), then the
+           train phase's own cell on a (1, 1) mesh held against that phase:
+           its argument bytes equal to the parameters, optimizer state and
+           batch the phase held, exactly, no collective byte; the dry-run's
+           peak beside the step's max_memory_allocated, the roofline bound
+           (core.hw.H100_SXM, the denominator of every bound and MFU here)
+           beside the step's device time, and useful_flops_cell beside the
+           row's model FLOPs
   serve_vlm  internvl2-26b at full width and depth (48 layers, d 6144, GQA at
            H=48 KVH=8 D=128), bf16, seeded random weights: the prefill step on
            4 x 512 prompts with 256 seeded patch embeddings (K1 48) and without
@@ -290,10 +298,12 @@ import importlib.util
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -852,7 +862,42 @@ def phase_partial_checks(cfg, hybrid) -> dict:
                                                label="hybrid G=1")}
     for row in rows.values():
         emit({"phase": "checks", **row})
+    emit({"phase": "checks", **check_decode_refuses_int8(gen, cfg)})
     return rows
+
+
+def check_decode_refuses_int8(gen, cfg) -> dict:
+    """K3's two entries on an int8 cache on the card (the serve row's
+    heads, a cache of MAX_LEN rows): each raises a TypeError that names the
+    dtypes K3 reads, launches nothing, and no plain version runs in its
+    place (the dispatch ``kernels.ops.flash_decode_op`` raises the same)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
+
+    q = torch.randn(BATCH, cfg.n_heads, cfg.head_dim, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randint(-128, 128, (BATCH, MAX_LEN, cfg.n_kv_heads, cfg.head_dim),
+                          generator=gen, device="cuda", dtype=torch.int8) for _ in range(2))
+    refused = {}
+    before = (flash_decode.launches, flash_decode_partial.launches)
+    for name, entry in (("flash_decode", flash_decode), ("flash_decode_partial",
+                                                         flash_decode_partial),
+                        ("kernels.ops.flash_decode_op", ops.flash_decode_op)):
+        try:
+            entry(q, k, v, PROMPT_LEN + 31)
+        except TypeError as e:
+            refused[name] = str(e)
+        else:
+            raise AssertionError(f"{name} took an int8 cache on the card")
+        if "bf16 or fp32" not in refused[name]:
+            raise AssertionError(f"{name} refused the int8 cache without naming K3's dtypes: "
+                                 f"{refused[name]}")
+    if (flash_decode.launches, flash_decode_partial.launches) != before:
+        raise AssertionError("K3 launched on an int8 cache")
+    return {"check": "flash_decode refuses an int8 cache", "cache": [BATCH, MAX_LEN,
+                                                                   cfg.n_kv_heads,
+                                                                   cfg.head_dim],
+            "refused": refused, "launches": 0}
 
 
 def check_flash_attention_bwd(gen, *, b, sq, skv, h, kvh, d, dtype, causal, dv=None,
@@ -2176,34 +2221,89 @@ def phase_train(cfg) -> tuple[dict, dict]:
     return launches, row
 
 
-def phase_dryrun(cfg, train_row: dict) -> None:
-    """The dry-run (``launch.dryrun``, on ``meta`` tensors on the host, no
-    kernel launched) and its yardstick against the card. (a) ``run_cell`` at
-    tinyllama-1.1b's four shapes on the 16 x 16 stand-in: 3 cells ok,
-    long_500k skipped, each with its three roofline terms, dominant term,
-    argument and peak bytes a device and ``fits``. (b) The ``train`` phase's
-    own cell (TRAIN_BATCH x TRAIN_SEQ, the TRAIN_MSM recipe, remat "full",
-    one microbatch) on a (1, 1) stand-in, against that phase's state on the
-    card: the argument bytes must equal the bytes of the parameters,
-    optimizer state and batch it held, exactly; the dry-run's peak beside
-    the step's ``max_memory_allocated``, the roofline's bound beside the
-    step's device time, and ``useful_flops_cell`` beside the row's model
-    FLOPs are printed."""
-    from repro_torch.configs import SHAPES, ShapeConfig
-    from repro_torch.core import msm
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.specs import StandInMesh
+# the dry-run's child process: launch.dryrun.run_cell as rank 0 of a fake
+# process group (one a cell, each destroyed before the next), the records
+# as one JSON line; the fake group is its process's default group, and this
+# process starts NCCL groups later, so it runs apart
+DRYRUN_CHILD = """
+import json, sys, time
+from repro_torch.configs import SHAPES, ShapeConfig
+from repro_torch.core import msm
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import StandInMesh, input_specs, local_nbytes
 
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+out = {"cells": [], "cells_s": {}}
+for name in SHAPES:
+    t = time.perf_counter()
+    out["cells"].append(dryrun.run_cell(arch, name))
+    out["cells_s"][name] = time.perf_counter() - t
+# decode_32k again with an int8 cache, and the bf16 cache's bytes a device
+t = time.perf_counter()
+policy = msm.compose("msm_decode", kv_cache_dtype="int8")
+out["int8"] = dryrun.run_cell(arch, "decode_32k", policy=policy)
+out["cells_s"]["decode_32k+kv_int8"] = time.perf_counter() - t
+_, _, args, shardings = input_specs(arch, "decode_32k", StandInMesh((16, 16)))
+out["bf16_cache_bytes"] = sum(local_nbytes(v, shardings[1][k]) for k, v in args[1].items())
+t = time.perf_counter()
+out["yardstick"] = dryrun.run_cell(arch, ShapeConfig("train", seq, batch, "train"),
+                                   mesh=StandInMesh((1, 1)),
+                                   policy=msm.compose("msm_train", microbatches=1))
+out["cells_s"]["yardstick"] = time.perf_counter() - t
+print(json.dumps(out))
+"""
+DRYRUN_TIMEOUT = 150
+CHILDREN: list = []     # processes this script started, stopped at its exit
+
+
+def phase_dryrun(cfg, train_row: dict) -> None:
+    """The dry-run (``launch.dryrun``, on the host, no kernel launched), in a
+    child process of its own (``DRYRUN_CHILD``, started and awaited here, so
+    that no phase's host clock runs beside it; killed at DRYRUN_TIMEOUT):
+    each cell's step runs through the port's mesh path as rank 0 of
+    a fake process group of the mesh's size, its counts rank 0's own. (a)
+    ``run_cell`` at tinyllama-1.1b's four shapes on the 16 x 16 mesh (256
+    ranks): 3 cells ok, long_500k skipped, each with its three roofline
+    terms, dominant term, argument and peak bytes a device, ``fits`` and
+    its collectives by kind. (b) decode_32k again with an int8 cache
+    (``compose(..., kv_cache_dtype="int8")``): its argument bytes are the
+    bf16 cell's less half the cache's. (c) The ``train`` phase's own cell
+    (TRAIN_BATCH x TRAIN_SEQ, the TRAIN_MSM recipe, remat "full", one
+    microbatch) on a (1, 1) mesh, against that phase's state on the card:
+    the argument bytes must equal the bytes of the parameters, optimizer
+    state and batch it held, exactly, and no collective moves a byte; the
+    dry-run's peak beside the step's ``max_memory_allocated``, the
+    roofline's bound beside the step's device time, and
+    ``useful_flops_cell`` beside the row's model FLOPs are printed."""
     t_start = time.perf_counter()
+    stdout, stderr = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, cfg.name, str(TRAIN_SEQ),
+                             str(TRAIN_BATCH)], stdin=subprocess.DEVNULL, stdout=stdout,
+                            stderr=stderr, cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                                 # meta ops: one thread ran the train cell faster
+                                 "OMP_NUM_THREADS": "1"})
+    CHILDREN.append(proc)
+    try:
+        code = proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"dryrun: the child ran past {DRYRUN_TIMEOUT} s") from None
+    child_s = time.perf_counter() - t_start
+    stdout.seek(0)
+    stderr.seek(0)
+    if code:
+        raise AssertionError(f"dryrun: the child exited {code}:\n{stderr.read()[-4000:]}")
+    out = json.loads(stdout.read().strip().splitlines()[-1])
     cells = []
-    for name in SHAPES:
-        res = dryrun.run_cell(cfg.name, name)
+    for res in out["cells"]:
         if res["status"] == "ok":
             r = res["roofline"]
             cells.append({key: res[key] for key in (
                 "shape", "mesh", "status", "step", "policy", "microbatches", "build_s",
-                "argument_bytes_per_device", "peak_memory_per_device", "fits",
-                "collective_bytes_per_device")}
+                "flops_per_device", "argument_bytes_per_device", "peak_memory_per_device",
+                "fits", "collective_bytes_per_device", "collectives")}
                 | {key: r[key] for key in ("compute_s", "memory_s", "collective_s", "dominant",
                                            "bound_s", "roofline_fraction")})
         else:
@@ -2212,24 +2312,36 @@ def phase_dryrun(cfg, train_row: dict) -> None:
     if statuses != ["ok", "ok", "ok", "skipped"] or cells[-1]["shape"] != "long_500k":
         raise AssertionError(f"dryrun: {cfg.name}'s four cells came back {statuses}, expected "
                              "three ok and long_500k skipped")
-    cells_s = time.perf_counter() - t_start
-
-    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
-    policy = msm.compose("msm_train", microbatches=1)
-    res = dryrun.run_cell(cfg.name, shape, mesh=StandInMesh((1, 1)), policy=policy)
+    bf16, int8 = out["cells"][2], out["int8"]
+    if (int8["status"] != "ok" or int8["argument_bytes_per_device"]
+            != bf16["argument_bytes_per_device"] - out["bf16_cache_bytes"] / 2):
+        raise AssertionError(f"dryrun: the int8 cache's decode_32k argument bytes "
+                             f"{int8.get('argument_bytes_per_device')} != the bf16 cell's "
+                             f"{bf16['argument_bytes_per_device']} less half its cache's "
+                             f"{out['bf16_cache_bytes']}")
+    res = out["yardstick"]
     held = sum(train_row["held_bytes"].values())
     if res["argument_bytes_per_device"] != held:
         raise AssertionError(f"dryrun: argument bytes {res['argument_bytes_per_device']} != the "
                              f"train phase's held bytes {held} ({train_row['held_bytes']})")
+    if res["collective_bytes_per_device"] != 0:
+        raise AssertionError(f"dryrun: a (1, 1) mesh moved {res['collectives']}")
     r = res["roofline"]
     step_s = train_row["step_ms_device"] / 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     diff = res["useful_flops"] - train_row["model_flops_per_step"]
     embedding = 6 * cfg.vocab_size * cfg.d_model * tokens
     diagonal = 6 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * TRAIN_SEQ
-    emit({"phase": "dryrun", "arch": cfg.name, "cells": cells, "cells_s": cells_s,
+    emit({"phase": "dryrun", "arch": cfg.name, "cells": cells, "cells_s": out["cells_s"],
+          "child_s": child_s,
+          "kv_int8": {"shape": "decode_32k", "argument_bytes": int8["argument_bytes_per_device"],
+                      "bf16_argument_bytes": bf16["argument_bytes_per_device"],
+                      "bf16_cache_bytes": out["bf16_cache_bytes"],
+                      "flops_per_device": int8["flops_per_device"],
+                      "collective_bytes_per_device": int8["collective_bytes_per_device"]},
           "yardstick": {
-              "shape": dataclasses.asdict(shape), "mesh": res["mesh"], "policy": policy.name,
+              "shape": {"seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "step": "train"},
+              "mesh": res["mesh"], "policy": res["policy"],
               "argument_bytes": res["argument_bytes_per_device"], "held_bytes": held,
               "held_bytes_by_part": train_row["held_bytes"], "argument_bytes_equal": True,
               "peak_memory_dryrun": res["peak_memory_per_device"],
@@ -2241,6 +2353,7 @@ def phase_dryrun(cfg, train_row: dict) -> None:
               "dominant": r["dominant"], "bound_s": r["bound_s"],
               "step_s_device": step_s, "step_ms_device_from": train_row["step_ms_device_from"],
               "roofline_fraction_reached": r["bound_s"] / step_s,
+              "collective_bytes": res["collective_bytes_per_device"],
               "useful_flops_cell": res["useful_flops"],
               "train_model_flops": train_row["model_flops_per_step"],
               "useful_minus_train": diff,
@@ -4122,4 +4235,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sys.exit(code)

@@ -8,11 +8,11 @@ Per (architecture x shape x mesh):
 
 The peaks are one NVIDIA H100 SXM's (``core.hw.H100_SXM``): the compute
 term on its dense bf16 rate, the memory term on its HBM rate, the
-collective term on its one NDR InfiniBand port. ``launch/dryrun`` counts the
-FLOPs (``FlopCounterMode``) and the bytes of every aten op's inputs and
-outputs (eager, unfused) over one step on ``meta`` tensors, and the
-collective bytes analytically from the placements; all three are already
-per device. ``hlo_flops``/``hlo_bytes`` keep the reference's field names
+collective term on its one NDR InfiniBand port. ``launch/dryrun`` counts,
+over one step run as rank 0 of a fake process group on ``meta`` tensors,
+the FLOPs and the bytes of rank 0's local ops' inputs and outputs (eager,
+unfused) and the bytes of the collectives they issue; all three are per
+device. ``hlo_flops``/``hlo_bytes`` keep the reference's field names
 (there, XLA's per-partition cost analysis). The dominant term is the
 bottleneck a performance PR iterates on.
 """

@@ -62,39 +62,56 @@ def shard_kv_len(kv_len, first: int, rows: int):
     return min(max(kv_len - first, 0), rows)
 
 
+def _scores(q, k, scale):
+    """The scaled scores (B,KVH,G,S) fp32 of q (B,H,D) against k
+    (B,S,KVH,D). An int8 cache is read as the reference's
+    ``decode_attention`` reads it: the product in q's dtype (JAX promotes
+    int8 against it), then fp32; a float cache's product is fp32."""
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, kvh, h // kvh, d)
+    if k.dtype == torch.int8:
+        return torch.einsum("bhgd,bkhd->bhgk", qg, k.to(q.dtype)).float() * scale
+    return torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float()) * scale
+
+
+def _weighted_sum(p, v):
+    """Σ_k p v_k (B,KVH,G,Dv) of fp32 weights p (B,KVH,G,S): fp32 against a
+    float cache; against an int8 cache in bf16, weights and values, as the
+    reference's ``decode_attention`` sums them."""
+    if v.dtype == torch.int8:
+        return torch.einsum("bhgk,bkhd->bhgd", p.to(torch.bfloat16), v.to(torch.bfloat16))
+    return torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+
+
 def flash_decode_partial_plain(q, k, v, kv_len, scale: float | None = None):
     """Plain version of the partial entry, fp32 inside: (out (B,H,Dv) fp32,
     normalised over the first ``kv_len`` rows, lse (B,H) fp32, the
     natural-log log-sum-exp of their scaled scores). ``kv_len`` 0 gives
-    out 0 and lse NEG_INF."""
-    b, h, d = q.shape
-    _, s, kvh, _ = k.shape
-    g = h // kvh
-    scale = scale if scale is not None else d ** -0.5
-    qg = q.reshape(b, kvh, g, d).float()
-    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
+    out 0 and lse NEG_INF. An int8 cache as in ``flash_decode_plain``."""
+    b, h = q.shape[:2]
+    s = k.shape[1]
+    sc = _scores(q, k, scale)
     valid = torch.arange(s, device=q.device) < kv_len
     sc = sc.masked_fill(~valid, NEG_INF)
     lse = torch.logsumexp(sc, dim=-1)
     p = torch.exp(sc - lse[..., None]) * valid          # masked rows weigh exactly 0
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = _weighted_sum(p, v).float()
     lse = torch.where(valid.any(), lse, torch.full_like(lse, NEG_INF))
     return out.reshape(b, h, v.shape[-1]), lse.reshape(b, h)
 
 
 def flash_decode_plain(q, k, v, kv_len, scale: float | None = None):
     """Plain version, fp32 inside, masks the whole cache beyond ``kv_len``
-    (a host int or a one-element tensor on q's device)."""
-    b, h, d = q.shape
-    _, s, kvh, _ = k.shape
-    g = h // kvh
-    scale = scale if scale is not None else d ** -0.5
-    qg = q.reshape(b, kvh, g, d).float()
-    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
+    (a host int or a one-element tensor on q's device). An int8 cache takes
+    the reference's arithmetic (``_scores``, ``_weighted_sum``)."""
+    b, h = q.shape[:2]
+    s = k.shape[1]
+    sc = _scores(q, k, scale)
     mask = torch.arange(s, device=q.device) < kv_len
     sc = sc.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = _weighted_sum(torch.softmax(sc, dim=-1), v)
     return out.reshape(b, h, v.shape[-1]).to(q.dtype)
 
 
@@ -213,6 +230,9 @@ def _launch_args(what: str, q, k, v, kv_len, scale, min_len: int):
     """What both entries check and pass: (kv_len's pointer or None, the host
     kv_len, the scale, the device, the plan)."""
     check_inputs(q, k, v, kv_len, min_len)
+    if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
+        raise TypeError(f"{what}: K3 reads a bf16 or fp32 cache, not {k.dtype}/{v.dtype} "
+                        "(an int8 cache is read by the plain decode only, impl='naive')")
     build.refuse_grad(what, q, k, v)
     build.check_cuda_tensors(q=q, k=k, v=v)
     b, h, d = q.shape

@@ -154,7 +154,8 @@ def flash_decode_partial_op(q, k, v, kv_len, *, scale=None):
     return flash_decode_partial_plain(q, k, v, kv_len, scale=scale)
 
 
-def _all_reduce(t, op, group):
+def all_reduce(t, op, group):
+    """``t`` all-reduced with ``op`` over ``group``, into a copy."""
     t = t.clone()
     dist.all_reduce(t, op=op, group=group)
     return t
@@ -180,10 +181,10 @@ def combine_partials(out, lse, mesh=None, axis=None):
         num, den = (w[..., None] * out).sum(0), w.sum(0)
     else:
         group = mesh.get_group(axis)
-        m = _all_reduce(lse, dist.ReduceOp.MAX, group)
+        m = all_reduce(lse, dist.ReduceOp.MAX, group)
         w = torch.exp(lse - m)
-        num = _all_reduce(w[..., None] * out, dist.ReduceOp.SUM, group)
-        den = _all_reduce(w, dist.ReduceOp.SUM, group)
+        num = all_reduce(w[..., None] * out, dist.ReduceOp.SUM, group)
+        den = all_reduce(w, dist.ReduceOp.SUM, group)
     return num / den[..., None], m + torch.log(den)
 
 

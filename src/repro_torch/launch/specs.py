@@ -4,10 +4,12 @@ The counterpart of the reference's ``launch/specs.py``, where an abstract
 value is a ``jax.ShapeDtypeStruct`` carrying its ``NamedSharding``. Here it
 is a ``meta`` tensor (shape and dtype, no storage) beside the
 ``sharding.partition.NamedSharding`` that would place it: ``input_specs``
-returns the step's arguments as trees of ``meta`` tensors and, parallel to
-them, trees of shardings. Nothing is allocated and no process group is
-started: the placements are computed on a ``StandInMesh``, which holds only
-what the rules read of a device mesh (its dim names and sizes).
+returns the step's arguments as trees of ``meta`` tensors at their global
+shapes and, parallel to them, trees of shardings. The placement rules read
+only a mesh's dim names and sizes, so ``input_specs`` takes a
+``DeviceMesh`` or a ``StandInMesh`` (those two things, no devices, no
+process group); ``on_mesh`` turns the trees into ``DTensor``s on a
+``DeviceMesh`` (``launch.dryrun`` runs its steps on them).
 
 The step's arguments, as the port's steps take them:
 
@@ -27,6 +29,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 import repro_torch.configs as configs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -48,7 +51,10 @@ IMPL_OF = {"naive": "naive", "chunked": "kernel", "pallas": "kernel"}
 @dataclass(frozen=True)
 class StandInMesh:
     """What the placement rules read of a ``DeviceMesh``: its dim names and
-    sizes (``partition.mesh_sizes``). No devices, no process group."""
+    sizes (``partition.mesh_sizes``). No devices, no process group: the
+    placements on the reference's production meshes, computed where no
+    group of their size can start, and the shape of the mesh
+    ``launch.dryrun.fake_mesh`` builds."""
 
     shape: tuple[int, ...]
     mesh_dim_names: tuple[str, ...] = ("data", "model")
@@ -142,13 +148,11 @@ def input_specs(arch, shape, mesh, policy=None):
                                                policy.grad_compression)
         return "train", model, (params, opt_state, batch), (param_sh, opt_sh, batch_sh)
 
-    # decode: one new token against a seq_len cache
-    if policy.kv_cache_dtype == "int8":
-        raise NotImplementedError("an int8 KV cache: the int8 branch of decode_attention is "
-                                  "not ported yet (it comes with serving through a mesh)")
+    # decode: one new token against a seq_len cache, int8 where the policy
+    # asks for it (the SSM state stays fp32, as init_cache makes it)
     shard_seq = policy.kv_shard_axis == "data" or gb == 1
-    cache = model.init_cache(gb, seq, dtype=torch.bfloat16, device="meta",
-                             enc_len=WHISPER_ENC_LEN)
+    kv_dtype = torch.int8 if policy.kv_cache_dtype == "int8" else torch.bfloat16
+    cache = model.init_cache(gb, seq, dtype=kv_dtype, device="meta", enc_len=WHISPER_ENC_LEN)
     cache_sh = cache_shardings(cache, mesh, shard_seq=shard_seq)
     tokens = _meta((gb, 1), tok)
     tokens_sh = bsh if gb > 1 else NamedSharding(mesh, ())
@@ -173,11 +177,18 @@ def local_nbytes(t: torch.Tensor, sharding: NamedSharding) -> int:
     return math.prod(local_shape(tuple(t.shape), sharding)) * t.element_size()
 
 
-def argument_bytes(args, shardings) -> int:
-    """Σ of each leaf's local-shard bytes over parallel trees (dicts, or
-    tuples of them) of tensors and ``NamedSharding``s."""
+def on_mesh(args, shardings):
+    """The parallel trees ``args`` (``meta`` tensors at their global shapes)
+    and ``shardings`` (``NamedSharding``s on a ``DeviceMesh``) as trees of
+    ``DTensor``s: each leaf this rank's local shard, a ``meta`` tensor of
+    ``local_shape`` (the first rank's, which is the dry-run's rank 0), in
+    its sharding's placements. ``from_local`` is given the global shape and
+    stride and checks nothing, so building them issues no collective."""
     if isinstance(args, (tuple, list)):
-        return sum(argument_bytes(a, s) for a, s in zip(args, shardings))
+        return type(args)(on_mesh(a, s) for a, s in zip(args, shardings))
     if hasattr(args, "keys"):
-        return sum(argument_bytes(args[k], shardings[k]) for k in args.keys())
-    return local_nbytes(args, shardings)
+        return {k: on_mesh(args[k], shardings[k]) for k in args.keys()}
+    local = torch.empty(local_shape(tuple(args.shape), shardings), dtype=args.dtype,
+                        device="meta")
+    return DTensor.from_local(local, shardings.mesh, shardings.placements, run_check=False,
+                              shape=args.shape, stride=args.stride())

@@ -13,6 +13,11 @@ the shared rope key) and the host-side position of the new token, and write
 the cache in place. MLA's prefill reaches K1 at q/k head dim
 ``head_dim + rope_head_dim`` and v head dim ``v_head_dim``; its decode is the
 absorbed form over the latent cache, plain products as in the reference.
+An int8 cache (``core.msm.compose(..., kv_cache_dtype="int8")``) is written
+through ``to_cache_dtype`` (JAX's saturating cast) and read with the
+reference's arithmetic: the scores in q's dtype, the weighted sum in bf16
+(``decode_attention``, K3's plain versions), MLA's softmax weights in the
+cache's dtype. K3 itself reads bf16 or fp32 only and raises on it.
 
 Under a device mesh the caches are ``DTensor``s in ``cache_shardings``'
 placements. The new token's row is written into the local shard of the rank
@@ -24,6 +29,7 @@ the latent cache's sequence is sharded. Neither gathers the cache.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -32,7 +38,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_decode import flash_decode_partial_plain, shard_kv_len
 from repro_torch.models.base import P, Specs
 from repro_torch.models.layers import apply_rope
-from repro_torch.sharding.partition import constrain, mesh_sizes, replicate_like
+from repro_torch.sharding.partition import fit, mesh_sizes, placements, replicate_like
 
 NEG_INF = -1e30
 IMPLS = ("naive", "kernel")
@@ -67,17 +73,21 @@ def decode_attention(q, k_cache, v_cache, kv_len: int, scale: float | None = Non
     """Single-token attention against a cache, scores materialized.
 
     q: (B,1,H,D); caches: (B,S,KVH,D); kv_len: number of valid entries.
+    An int8 cache is read as the reference reads it: the scores in q's
+    dtype (JAX promotes int8 against it), the weighted sum in bf16.
     """
     b, _, h, d = q.shape
     _, s, kvh, _ = k_cache.shape
     g = h // kvh
     scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, kvh, g, d)
+    k_cache = k_cache.to(torch.promote_types(q.dtype, k_cache.dtype))
     scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * scale
     mask = torch.arange(s, device=q.device) < kv_len
     scores = scores.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache)
+    acc = torch.bfloat16 if v_cache.dtype == torch.int8 else v_cache.dtype
+    p = torch.softmax(scores, dim=-1).to(acc)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(acc))
     return out.reshape(b, 1, h, v_cache.shape[-1])
 
 
@@ -107,9 +117,29 @@ def whole_heads(t, n_heads: int):
     unflatten its columns into whole heads, so ``t`` comes back
     "model"-replicated, as ``kernels.ops.attention_on_local_shards`` reads
     such heads. Any other tensor comes back as it is."""
-    if isinstance(t, DTensor) and n_heads % mesh_sizes(t.device_mesh).get("model", 1):
-        return constrain(t, ("pod", "data"), None, None)
-    return t
+    if not (isinstance(t, DTensor) and n_heads % mesh_sizes(t.device_mesh).get("model", 1)):
+        return t
+    # not ``constrain``, which leaves a tensor as it is where every entry
+    # degrades (a batch of one): the columns must come back whole all the same
+    mesh = t.device_mesh
+    target = placements(fit(t.shape, (("pod", "data"), None, None), mesh), mesh)
+    return t if tuple(t.placements) == target else t.redistribute(mesh, target)
+
+
+def merge_heads(out):
+    """An attention output (B, S, H, Dv) as (B, S, H * Dv). A ``DTensor`` is
+    flattened on each rank's shard (``local_map``) in the placements it
+    has, so that the gradient coming back is brought to those placements
+    first: where the heads do not divide "model" the output is
+    "model"-replicated, while the output projection's backward hands its
+    gradient back with the flattened width over "model", which no rank
+    could unflatten into whole heads."""
+    b, s = out.shape[:2]
+    if not isinstance(out, DTensor):
+        return out.reshape(b, s, -1)
+    layout = list(out.placements)
+    return local_map(lambda t: t.reshape(t.shape[0], t.shape[1], -1), out_placements=layout,
+                     in_placements=(layout,), device_mesh=out.device_mesh)(out)
 
 
 def gqa_specs(cfg: ModelConfig) -> Specs:
@@ -141,8 +171,16 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, *, causal=True,
                   impl="kernel"):
     q, k, v = gqa_project_qkv(params, cfg, x, positions)
     out = sdpa(q, k, v, causal=causal, impl=impl)
-    b, s = x.shape[:2]
-    return out.reshape(b, s, -1) @ params["wo"]
+    return merge_heads(out) @ params["wo"]
+
+
+def to_cache_dtype(x, dtype):
+    """``x`` in a cache's ``dtype``. Into int8 a float is truncated toward
+    zero and saturated to [-128, 127], NaN to 0, as JAX's ``astype(int8)``
+    casts it (the reference's cache writes); torch's ``.to`` would wrap."""
+    if dtype == torch.int8 and x.is_floating_point():
+        x = torch.nan_to_num(x.float().trunc(), nan=0.0).clamp(-128, 127)
+    return x.to(dtype)
 
 
 def write_cache_row(cache, pos: int, row) -> None:
@@ -151,9 +189,10 @@ def write_cache_row(cache, pos: int, row) -> None:
     ``DTensor`` on a sharded dim could write a redistributed temporary and
     leave the cache as it was): ``row`` is brought to the cache's layout
     less the sequence dim, and only the rank whose sequence shard holds
-    ``pos`` writes, at ``pos`` less its shard's first row."""
+    ``pos`` writes, at ``pos`` less its shard's first row. The row takes the
+    cache's dtype through ``to_cache_dtype``."""
     if not isinstance(cache, DTensor):
-        cache[:, pos] = row.to(cache.dtype)
+        cache[:, pos] = to_cache_dtype(row, cache.dtype)
         return
     _, seq_dim = kops.cache_layout(cache)
     row_layout = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
@@ -164,7 +203,7 @@ def write_cache_row(cache, pos: int, row) -> None:
     local = cache.to_local()
     offset = kops.seq_offset(cache, seq_dim)
     if offset <= pos < offset + local.shape[1]:
-        local[:, pos - offset] = row.to(local.dtype)
+        local[:, pos - offset] = to_cache_dtype(row, local.dtype)
     elif seq_dim is None:
         raise IndexError(f"position {pos} outside the cache's {cache.shape[1]} rows")
 
@@ -182,7 +221,7 @@ def gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int,
     q, k, v = gqa_project_qkv(params, cfg, x, positions)
     write_cache_row(cache_k, pos, k[:, 0])
     write_cache_row(cache_v, pos, v[:, 0])
-    q = q.to(cache_k.dtype)
+    q = _query_for(q, cache_k)
     if impl == "kernel":
         out = kops.flash_decode_op(q[:, 0], cache_k, cache_v, pos + 1)
     elif isinstance(cache_k, DTensor):
@@ -194,6 +233,12 @@ def gqa_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos: int,
         out = decode_attention(q, cache_k, cache_v, kv_len=pos + 1)
     out = out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
     return out, cache_k, cache_v
+
+
+def _query_for(q, cache):
+    """q in the dtype of a float cache, as K3 takes them; against an int8
+    cache q keeps its own, as the reference's einsum promotes the cache."""
+    return q.to(cache.dtype) if cache.dtype.is_floating_point else q
 
 
 def _decode_attention_3d(q, k_cache, v_cache, kv_len, scale=None):
@@ -215,7 +260,7 @@ def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
     b, enc_len = x.shape[0], cross_k.shape[1]
     if enc_len == 0:
         return torch.zeros_like(x)
-    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim).to(cross_k.dtype)
+    q = _query_for((x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim), cross_k)
     if impl == "kernel":
         out = kops.flash_decode_op(q[:, 0], cross_k, cross_v, enc_len)
     elif isinstance(cross_k, DTensor):
@@ -282,12 +327,11 @@ def mla_attention(params, cfg: ModelConfig, x, positions, *, causal=True, impl="
     """Full-sequence MLA. Past ``sdpa``'s S <= 256 shortcut, ``impl="kernel"``
     runs K1 at q/k head dim hd + r and v head dim vd (192 and 128 for
     deepseek-v2-236b), scale (hd + r)^-0.5."""
-    b, s, _ = x.shape
     c_kv, k_rope = _mla_latent(params, cfg, x, positions)
     q, k, v = _mla_qkv(params, cfg, x, positions, c_kv, k_rope)
     scale = (cfg.head_dim + cfg.rope_head_dim) ** -0.5
     out = sdpa(q, k, v, causal=causal, impl=impl, scale=scale)
-    return out.reshape(b, s, -1) @ params["wo"]
+    return merge_heads(out) @ params["wo"]
 
 
 def mla_decode(params, cfg: ModelConfig, x, cache_ckv, cache_krope, pos: int, impl="kernel"):
@@ -358,6 +402,8 @@ def _mla_context_on_local_shards(q_abs, q_rope, ckv, krope, kv_len, scale):
             return _mla_context(qa, qr, c_, kr, kv_len, scale)
         scores, valid = _mla_scores(qa, qr, c_, kr, shard_kv_len(kv_len, offset, c_.shape[1]),
                                     scale)
+        if not c_.dtype.is_floating_point:
+            return _int_context_over_shards(scores, c_, mesh, seq_dim)
         lse = torch.logsumexp(scores, dim=-1)                       # (B,H,1)
         p = torch.exp(scores - lse[..., None]) * valid
         ctx = torch.einsum("bhqk,bkl->bqhl", p.to(c_.dtype), c_)
@@ -367,3 +413,19 @@ def _mla_context_on_local_shards(q_abs, q_rope, ckv, krope, kv_len, scale):
     return local_map(local, out_placements=q_layout,
                      in_placements=(q_layout, q_layout, ckv.placements, krope.placements),
                      device_mesh=mesh, redistribute_inputs=True)(q_abs, q_rope, ckv, krope)
+
+
+def _int_context_over_shards(scores, ckv, mesh, seq_dim):
+    """The weighted latent rows of an integer (int8) cache whose sequence is
+    sharded over mesh dim ``seq_dim``. The reference casts the softmax
+    weights to the cache's dtype, which keeps only a weight of exactly 1, so
+    no rank may normalise over its own rows: each takes the softmax over the
+    whole sequence (its max and sum all-reduced, as ``jax.nn.softmax``
+    computes it) and the ranks' integer sums are added, wrapping as the
+    cache's dtype does."""
+    group = mesh.get_group(seq_dim)
+    m = kops.all_reduce(scores.amax(-1, keepdim=True), dist.ReduceOp.MAX, group)
+    e = torch.exp(scores - m)
+    p = e / kops.all_reduce(e.sum(-1, keepdim=True), dist.ReduceOp.SUM, group)
+    ctx = torch.einsum("bhqk,bkl->bqhl", p.to(ckv.dtype).long(), ckv.long())
+    return kops.all_reduce(ctx, dist.ReduceOp.SUM, group).to(ckv.dtype)

@@ -156,6 +156,6 @@ def decoder_block(params, cfg: ModelConfig, x, enc_out, positions, impl="kernel"
     k = attn.whole_heads(enc @ cross["wk"], cfg.n_kv_heads).reshape(b, s_enc, cfg.n_kv_heads, hd)
     v = attn.whole_heads(enc @ cross["wv"], cfg.n_kv_heads).reshape(b, s_enc, cfg.n_kv_heads, hd)
     o = attn.sdpa(q, k, v, causal=False, impl=impl)
-    x = x + sp_boundary(o.reshape(b, s, -1) @ cross["wo"])
+    x = x + sp_boundary(attn.merge_heads(o) @ cross["wo"])
     h = sp_gather(rmsnorm(params["ln2"], x, cfg.norm_eps))
     return x + sp_boundary(ffn(params["ffn"], h, fused=fused))

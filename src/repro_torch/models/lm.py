@@ -386,7 +386,9 @@ class LanguageModel(nn.Module):
     # ------------------------------------------------------------ decode step --
     def decode_step(self, cache, tokens, pos: int):
         """tokens: (B,1) int; pos: host int (current length). The cache is
-        written IN PLACE. Returns (logits (B,1,V), cache). A moe config's
+        written IN PLACE, but for an int8 SSM conv state, which comes back
+        in the activations' dtype as the reference's does (a new leaf of
+        ``cache``). Returns (logits (B,1,V), cache). A moe config's
         ``dense_layers`` run against cache layers [0, first_k_dense) and its
         ``layers`` against the rest, as in the reference's MLA branch."""
         cfg, params = self.cfg, self.params
@@ -401,6 +403,11 @@ class LanguageModel(nn.Module):
                 x = self._decoder_decode(p, x, cache["k"][i], cache["v"][i],
                                          cache["cross_k"][i], cache["cross_v"][i], pos)
         else:
+            if not cache["conv"].dtype.is_floating_point:
+                # an int8 conv state: the reference's _causal_conv concatenates
+                # it with the new rows (JAX promotes it to their dtype) and its
+                # scan hands the state back in that dtype
+                cache["conv"] = cache["conv"].to(x.dtype)
             for i, p in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
                 x, _, _ = blocks.mamba_block_decode(p, cfg, x, cache["conv"][i],
                                                     cache["ssm"][i])

@@ -16,7 +16,10 @@ to their placements, as the reference's ``with_sharding_constraint``s do.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.sharding.partition import device_put
 from repro_torch.train import optim as optim_mod
@@ -86,8 +89,11 @@ def make_train_step(model, opt_cfg: optim_mod.OptimConfig,
     Under a mesh: ``grad_shardings`` (the parameters' ``NamedSharding``s)
     pins each microbatch's gradients and the fp32 accumulator to the
     parameters' placements, so the accumulator stays as sharded as the
-    parameters; ``batch_shardings`` (one per batch key) pins each
-    microbatch's rows."""
+    parameters; ``batch_shardings`` (one per batch key) pins the split
+    batch (microbatches, rows, ...), the microbatch dim first, as the
+    reference's dry-run builds them (``mb_shard``: the batch's spec behind
+    a replicated leading dim), so that each microbatch keeps the batch's
+    placements."""
 
     def grad_fn(params, batch):
         loss = model.loss(batch)
@@ -103,13 +109,21 @@ def make_train_step(model, opt_cfg: optim_mod.OptimConfig,
             grads = _place(grads, grad_shardings)
         else:
             def split(x):
+                if isinstance(x, DTensor):
+                    # the split's leading dim holds dim 0's shards only where
+                    # their count divides it; else dim 0 is gathered first
+                    shards = math.prod(x.device_mesh.size(d) for d, p in enumerate(x.placements)
+                                       if p.is_shard(0))
+                    if microbatches % shards:
+                        x = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(0) else p
+                                                           for p in x.placements])
                 return x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
 
-            parts = {k: split(v) for k, v in batch.items()}
+            parts = _place({k: split(v) for k, v in batch.items()}, batch_shardings)
             gsum = _place(tree_map(_zeros_f32, params), grad_shardings)
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(microbatches):
-                mb = _place({k: v[i] for k, v in parts.items()}, batch_shardings)
+                mb = {k: v[i] for k, v in parts.items()}
                 l, g = grad_fn(params, mb)
                 g = _place(g, grad_shardings)
                 for acc, gi in zip(tree_leaves(gsum), tree_leaves(g)):

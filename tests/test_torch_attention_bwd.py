@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention_bwd import (attention_delta, check_bwd_
                                                      flash_attention_bwd_dkv_plain,
                                                      flash_attention_bwd_dq_plain,
                                                      flash_attention_bwd_plain)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 TOL = 2e-4      # the reference's own tolerance for its backward kernels (fp32)
 

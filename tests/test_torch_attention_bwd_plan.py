@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention_bwd import (DKV_KEYS, DQ_ROWS, FMA_TILE
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq,
                                                      flash_attention_bwd_plain)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 CU = (pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "csrc"
       / "flash_attention_bwd.cu").read_text()

@@ -34,6 +34,7 @@ from repro_torch.models.base import count_params
 from repro_torch.serve.step import make_prefill_step
 from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import tree_leaves
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ARCH = "whisper-base"
 SMOKE = ARCH + "-smoke"

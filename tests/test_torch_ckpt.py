@@ -21,6 +21,7 @@ from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, restore,
 from repro_torch.ft import ElasticRunner, RunState, StepWatchdog, StragglerStats
 from repro_torch.models import LanguageModel
 from repro_torch.train.optim import tree_leaves, tree_map
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 CPU = torch.device("cpu")
 

@@ -15,6 +15,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import (NEG_INF, decode_plan, decode_walk,
                                               flash_decode_partial, flash_decode_partial_plain,
                                               flash_decode_plain, shard_kv_len)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 TOL = 2e-5          # fp32, tests/test_kernels.py:14
 B, H, KVH, D, S = 2, 8, 2, 32, 64

@@ -17,6 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_CLUSTER, ROWS, TARGET_BLOCKS,
                                               TILE_KEYS, WARPS, cdiv, decode_plan, decode_walk,
                                               flash_decode, flash_decode_plain)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 CU = (pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "csrc"
       / "flash_decode.cu").read_text()

@@ -3,20 +3,28 @@
 forms.
 
 The placements are pure functions of shapes and mesh sizes, so both sides
-run on stand-in meshes: the port's ``StandInMesh``, and for the reference
-its ``NamedSharding`` built on a ``jax.sharding.AbstractMesh`` of the same
-sizes (its rules read a mesh's axis names and device-array shape only).
-``run_cell`` runs each cell's step on ``meta`` tensors. The smoke configs
+compute them on stand-in meshes: the port's ``StandInMesh``, and for the
+reference its ``NamedSharding`` built on a ``jax.sharding.AbstractMesh`` of
+the same sizes (its rules read a mesh's axis names and device-array shape
+only). ``run_cell`` runs each cell's step through the port's mesh path as
+rank 0 of a fake process group of the mesh's size; a process group is
+process-wide, and none may start in a pytest worker, so every ``run_cell``
+of this module runs in one subprocess (``fake_runs``, killed at
+``FAKE_RUNS_TIMEOUT``) and the tests read its records. The smoke configs
 run at a small shape a step (``SMALL``, the grid's names and kinds): on
-``meta`` every op costs a Python-level shape computation, and the Mamba-2
-layers' naive scan takes a Python loop a chunk of 32 positions, so at the
-grid's 4096 and 32768 positions one smoke cell takes minutes; tinyllama's
-smoke config also runs at the grid's own shapes."""
+``meta`` every op costs a Python-level shape computation (and on a mesh
+``DTensor``'s sharding propagation), so at the grid's 4096 and 32768
+positions one smoke cell takes minutes; tinyllama's smoke config also runs
+at the grid's own shapes on 16 x 16."""
 import ast
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import signal
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -38,11 +46,12 @@ from repro_torch.core import msm
 from repro_torch.core.hw import H100_SXM
 from repro_torch.data.pipeline import DataConfig, _batch_at
 from repro_torch.launch import dryrun
-from repro_torch.launch.specs import StandInMesh, input_specs
+from repro_torch.launch.specs import StandInMesh, input_specs, local_nbytes
 from repro_torch.models import LanguageModel
 from repro_torch.models.base import abstract_params
 from repro_torch.train import OptimConfig, init_opt_state
 from repro_torch.train.optim import tree_leaves
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SMOKE = "tinyllama-1.1b-smoke"
@@ -202,25 +211,133 @@ def test_clamp_microbatches_equals_the_references():
                     reference(mb, gb, ref)
 
 
-# --- run_cell ----------------------------------------------------------------------
+# --- run_cell, in one subprocess -------------------------------------------------
+
+FAKE_RUNS_TIMEOUT = 900
+MESHES = [(1, 1), (2, 2), (1, 4)]
+POD = ("pod", "data", "model")
+# one architecture a family (dense, vlm, moe, MLA, hybrid, ssm, audio), run
+# data-parallel on (4, 1) at the shapes whose batch "data" divides
+DP_ARCHS = ["tinyllama-1.1b", "internvl2-26b", "qwen3-moe-235b-a22b", "deepseek-v2-236b",
+            "zamba2-1.2b", "mamba2-1.3b", "whisper-base"]
+DP_SHAPES = ["train_4k", "prefill_32k", "decode_32k"]
+
+# the subprocess: every run_cell this module reads, as JSON records by key
+FAKE_RUNS = """
+import contextlib, io, json, sys
+import torch.distributed as dist
+from torch.utils.flop_counter import FlopCounterMode
+import repro_torch.configs as configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import msm
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import StandInMesh, input_specs
+
+out_path, cli_out = sys.argv[1], sys.argv[2]
+small = {{name: ShapeConfig(*v) for name, v in {small}.items()}}
+res = {{}}
+
+def cell(arch, shape, mesh, names=("data", "model"), policy=None):
+    return dryrun.run_cell(arch, shape, mesh=StandInMesh(mesh, names), policy=policy)
+
+def unsharded_flops(arch, shape):
+    # the step without a mesh, on plain meta tensors, FlopCounterMode's count
+    cfg, one = configs.get(arch), StandInMesh((1, 1))
+    policy = msm.recommend(shape.name, cfg.n_params())
+    kind, model, args, _ = input_specs(cfg, shape, one, policy)
+    mb = (dryrun._clamp_microbatches(policy.microbatches, shape.global_batch, one)
+          if kind == "train" else 1)
+    with FlopCounterMode(display=False) as flops:
+        dryrun.build_step(kind, model, policy, shape, mb)(*args)
+    return flops.get_total_flops()
+
+for arch in sorted(configs.ARCHS):
+    smoke = arch + "-smoke"
+    for name, shape in small.items():
+        for mesh in {meshes}:
+            res[f"{{smoke}}|{{name}}|{{mesh}}"] = cell(smoke, shape, mesh)
+        if res[f"{{smoke}}|{{name}}|(1, 1)"]["status"] == "ok":
+            res[f"{{smoke}}|{{name}}|unsharded_flops"] = unsharded_flops(smoke, shape)
+        if arch in {dp_archs} and name in {dp_shapes}:
+            res[f"{{smoke}}|{{name}}|(4, 1)"] = cell(smoke, shape, (4, 1))
+    res[f"{{smoke}}|decode_32k+kv_int8|(2, 2)"] = cell(
+        smoke, small["decode_32k"], (2, 2), policy=msm.compose("msm_decode", kv_cache_dtype="int8"))
+for name in configs.SHAPES:
+    res[f"{smoke_arch}|{{name}}|16x16"] = dryrun.run_cell("{smoke_arch}", name)
+res["yardstick"] = cell("{smoke_arch}", ShapeConfig("train", 288, 2, "train"), (1, 1),
+                        policy=msm.compose("msm_train", microbatches=1))
+res["train|(2, 1, 1)"] = cell("{smoke_arch}", small["train_4k"], (2, 1, 1), {pod})
+# a process that has a group of its own cannot start the fake one
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+try:
+    with dryrun.fake_mesh((1, 1), ("data", "model")):
+        res["refused"] = None
+except RuntimeError as e:
+    res["refused"] = str(e)
+dist.destroy_process_group()
+# the CLI: a skipped cell on both meshes, an SSM cell on both, the cache
+runs = []
+for argv in (["--arch", "{smoke_arch}", "--shape", "long_500k", "--both-meshes"],
+             ["--arch", "zamba2-1.2b-smoke", "--shape", "long_500k", "--both-meshes"],
+             ["--arch", "{smoke_arch}", "--shape", "long_500k", "--both-meshes"]):
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        code = dryrun.main(argv + ["--out", cli_out])
+    runs.append({{"code": code, "printed": printed.getvalue(),
+                 "records": json.load(open(cli_out))}})
+res["cli"] = runs
+with open(out_path, "w") as f:
+    json.dump(res, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def fake_runs(tmp_path_factory):
+    """The records of ``FAKE_RUNS``, run in one subprocess of its own session,
+    killed (its whole process group) at ``FAKE_RUNS_TIMEOUT``."""
+    tmp = tmp_path_factory.mktemp("fake_runs")
+    out = tmp / "runs.json"
+    script = FAKE_RUNS.format(small={k: dataclasses.astuple(v) for k, v in SMALL.items()},
+                              meshes=MESHES, smoke_arch=SMOKE, pod=POD, dp_archs=DP_ARCHS,
+                              dp_shapes=DP_SHAPES)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with open(tmp / "stdout", "w") as so, open(tmp / "stderr", "w") as se:
+        proc = subprocess.Popen([sys.executable, "-c", script, str(out), str(tmp / "cli.json")],
+                                stdin=subprocess.DEVNULL, stdout=so, stderr=se, cwd=ROOT,
+                                env=env, start_new_session=True)
+        try:
+            proc.wait(timeout=FAKE_RUNS_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    assert proc.returncode == 0, (proc.returncode, (tmp / "stderr").read_text()[-4000:])
+    return json.loads(out.read_text())
+
+
+def smoke_cells(fake_runs, arch, mesh):
+    """``{shape name: record}`` of ``arch``'s smoke config at ``SMALL`` on
+    ``mesh``."""
+    return {name: fake_runs[f"{arch}-smoke|{name}|{mesh}"] for name in SMALL}
+
 
 @pytest.mark.parametrize("arch", sorted(tconfigs.ARCHS))
-def test_run_cell_on_each_smoke_config(arch, reference_on, monkeypatch):
-    """Each shape on a (2, 2) stand-in: ok, or skipped with the reference's
+def test_run_cell_on_each_smoke_config(arch, reference_on, monkeypatch, fake_runs):
+    """Each shape on a (2, 2) mesh: ok, or skipped with the reference's
     reason; argument bytes equal to the closed form over the reference's
     specs at the same shape; every field present and finite."""
     smoke = arch + "-smoke"
     ref_mesh = reference_on((2, 2))
-    for name, shape in SMALL.items():
+    for name, res in smoke_cells(fake_runs, arch, (2, 2)).items():
         monkeypatch.setitem(jconfigs.SHAPES, name, jconfigs.ShapeConfig(**dataclasses.asdict(
-            shape)))
-        res = dryrun.run_cell(smoke, shape, mesh=StandInMesh((2, 2)))
+            SMALL[name])))
         runnable, reason = jconfigs.base.cell_is_runnable(jconfigs.get(smoke),
                                                           jconfigs.SHAPES[name])
         if not runnable:
             assert (res["status"], res["reason"]) == ("skipped", reason)
             continue
         assert res["status"] == "ok", res
+        assert res["mesh"] == "2x2" and res["chips"] == 4
         _, ref = reference_args(smoke, name, ref_mesh)
         assert res["argument_bytes_per_device"] == closed_form_argument_bytes(
             ref, {"data": 2, "model": 2})
@@ -231,16 +348,131 @@ def test_run_cell_on_each_smoke_config(arch, reference_on, monkeypatch):
             res["temp_bytes_per_device"]
         assert res["fits"] == (res["peak_memory_per_device"] <= H100_SXM.hbm_capacity)
         assert res["roofline"]["dominant"] in ("compute", "memory", "collective")
+        assert res["collective_bytes_per_device"] == sum(
+            res["collectives"]["by_kind"].values())
 
 
-def test_tinyllama_smoke_at_the_grids_shapes(reference_on):
-    """The grid's own shapes on the production stand-in (16 x 16): 3 cells
-    ok, long_500k skipped as the reference skips it, argument bytes equal
-    to the closed form."""
+@pytest.mark.parametrize("arch", sorted(tconfigs.ARCHS))
+def test_one_device_counts_equal_the_unsharded_step(arch, fake_runs):
+    """On a (1, 1) mesh every smoke cell's FLOPs equal, exactly,
+    ``FlopCounterMode``'s count of the same step run without a mesh on
+    plain ``meta`` tensors, and no collective moves a byte."""
+    for name, res in smoke_cells(fake_runs, arch, (1, 1)).items():
+        if res["status"] != "ok":
+            continue
+        assert res["flops_per_device"] == fake_runs[f"{arch}-smoke|{name}|unsharded_flops"], name
+        assert res["collective_bytes_per_device"] == 0, name
+        assert res["chips"] == 1
+
+
+# the cells in which rank 0 runs the whole step: mamba2's mixers run on each
+# rank's rows with every weight replicated (``layers.on_rows``), and its loss
+# reads the whole vocabulary on each rank's rows, so over "model" alone
+# (rows over a "data" of 1) no op of its training step divides
+WHOLE_STEP_ON_EACH_RANK = {("mamba2-1.3b", "train_4k", (1, 4))}
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)], ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", sorted(tconfigs.ARCHS))
+def test_per_rank_counts_on_a_mesh(arch, mesh, reference_on, monkeypatch, fake_runs):
+    """Each family's smoke ``train``, ``prefill`` and ``decode`` cells on
+    (2, 2) and (1, 4): the argument bytes equal the closed form over the
+    reference's specs, and rank 0's FLOPs times the chips are at least the
+    unsharded step's (no work is lost) while rank 0's own FLOPs are fewer
+    than the step's (a count of the global op would equal it), but in the
+    cells of ``WHOLE_STEP_ON_EACH_RANK``, where they equal it."""
+    smoke = arch + "-smoke"
+    ref_mesh = reference_on(mesh)
+    chips = math.prod(mesh)
+    for name, res in smoke_cells(fake_runs, arch, mesh).items():
+        if res["status"] != "ok":
+            continue
+        monkeypatch.setitem(jconfigs.SHAPES, name, jconfigs.ShapeConfig(**dataclasses.asdict(
+            SMALL[name])))
+        _, ref = reference_args(smoke, name, ref_mesh)
+        assert res["argument_bytes_per_device"] == closed_form_argument_bytes(
+            ref, dict(zip(("data", "model"), mesh))), name
+        whole = fake_runs[f"{smoke}|{name}|unsharded_flops"]
+        assert whole <= res["flops_per_device"] * chips, name
+        if (arch, name, mesh) in WHOLE_STEP_ON_EACH_RANK:
+            assert res["flops_per_device"] == whole, name
+        else:
+            assert res["flops_per_device"] < whole, name
+
+
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_data_parallel_splits_the_step_evenly(arch, fake_runs):
+    """Each family's smoke ``train``, ``prefill`` and ``decode`` cells on
+    (4, 1), whose batch rows "data" divides: every op of the step runs on
+    each rank's rows (FSDP's weights gathered whole), so rank 0's FLOPs are
+    the unsharded step's over 4, exactly; its bytes and its peak of
+    temporaries are below the (1, 1) cell's, which a count of the global
+    ops would equal."""
+    smoke = arch + "-smoke"
+    for name in DP_SHAPES:
+        res, one = fake_runs[f"{smoke}|{name}|(4, 1)"], fake_runs[f"{smoke}|{name}|(1, 1)"]
+        assert res["status"] == "ok" and res["chips"] == 4, (name, res)
+        assert res["flops_per_device"] * 4 == fake_runs[f"{smoke}|{name}|unsharded_flops"], name
+        assert res["bytes_per_device"] < one["bytes_per_device"], name
+        assert res["temp_bytes_per_device"] < one["temp_bytes_per_device"], name
+
+
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2), (1, 4)], ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("name", DP_SHAPES)
+def test_dense_per_rank_flops_by_closed_form(name, mesh, fake_runs):
+    """tinyllama smoke's cells (L = 2 layers, d = 64, F = 128, V = 256): rank
+    0's FLOPs are the unsharded step's split over every rank, but for the
+    work a rank repeats, which splits over "data" only:
+
+    * train: the loss's vocab product, 2TdV four times a microbatch
+      (``test_dense_flops_by_closed_form``): the chunked cross-entropy runs
+      on each rank's rows against the whole vocabulary (``layers.on_rows``);
+    * prefill: none (its logits are the last position's, over the vocab
+      shards);
+    * decode: the first block's FFN gate and up products, 2 x 2BdF: its
+      residual is the embedding's rows plus the output projection's partial
+      sums over "model" (``Partial``), so ``DTensor`` gathers w_gate and
+      w_up whole and runs both on the partial sums on every rank (later
+      blocks take their F-slice; ROADMAP queue 2, C3)."""
+    cfg = tconfigs.get(SMOKE)
+    shape = SMALL[name]
+    res = fake_runs[f"{SMOKE}|{name}|{mesh}"]
+    whole = fake_runs[f"{SMOKE}|{name}|unsharded_flops"]
+    data, model = mesh
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    rows = shape.global_batch
+    repeated = {"train_4k": 4 * 2 * rows * shape.seq_len * d * v,   # Σ over the microbatches
+                "prefill_32k": 0,
+                "decode_32k": 2 * 2 * rows * d * f}[name]
+    want = (whole - repeated) / (data * model) + repeated / data
+    assert res["flops_per_device"] == pytest.approx(want, rel=FLOP_RTOL), name
+
+
+def test_an_int8_cache_halves_the_cache_bytes(fake_runs):
+    """Each smoke config's ``decode_32k`` on (2, 2) with an int8 cache
+    (``compose("msm_decode", kv_cache_dtype="int8")``): the argument bytes
+    are the bf16 cell's less half its cache bytes, the SSM state (fp32 in
+    both) aside."""
+    for arch in sorted(tconfigs.ARCHS):
+        smoke = arch + "-smoke"
+        bf16 = fake_runs[f"{smoke}|decode_32k|(2, 2)"]
+        int8 = fake_runs[f"{smoke}|decode_32k+kv_int8|(2, 2)"]
+        assert int8["status"] == bf16["status"] == "ok" and int8["kv_cache_dtype"] == "int8"
+        _, _, args, shardings = input_specs(smoke, SMALL["decode_32k"], StandInMesh((2, 2)))
+        cache = sum(local_nbytes(t, shardings[1][k]) for k, t in args[1].items() if k != "ssm")
+        assert int8["argument_bytes_per_device"] == bf16["argument_bytes_per_device"] - cache / 2
+
+
+def test_tinyllama_smoke_at_the_grids_shapes(reference_on, fake_runs):
+    """The grid's own shapes on the production mesh (16 x 16, 256 ranks of a
+    fake group): 3 cells ok, long_500k skipped as the reference skips it,
+    argument bytes equal to the closed form. Its 4 query heads and 2 KV heads
+    divide no "model" of 16: the training cell's backward takes the heads
+    back whole (``attention.merge_heads``)."""
     ref_mesh = reference_on((16, 16))
     statuses = []
     for name in tconfigs.SHAPES:
-        res = dryrun.run_cell(SMOKE, name)
+        res = fake_runs[f"{SMOKE}|{name}|16x16"]
         statuses.append(res["status"])
         if res["status"] != "ok":
             assert res["reason"] == jconfigs.base.cell_is_runnable(
@@ -250,17 +482,15 @@ def test_tinyllama_smoke_at_the_grids_shapes(reference_on):
         _, ref = reference_args(SMOKE, name, ref_mesh)
         assert res["argument_bytes_per_device"] == closed_form_argument_bytes(
             ref, {"data": 16, "model": 16})
+        assert res["collective_bytes_per_device"] > 0
     assert statuses == ["ok", "ok", "ok", "skipped"]
 
 
-def test_argument_bytes_equal_an_allocated_state():
+def test_argument_bytes_equal_an_allocated_state(fake_runs):
     """The yardstick the card holds at full size, on the CPU at smoke size:
-    on a (1, 1) stand-in the dry-run's argument bytes are the Σ nbytes of
-    the parameters and optimizer state a training run holds, plus its
-    batch."""
-    shape = ShapeConfig("train", 288, 2, "train")
-    policy = msm.compose("msm_train", microbatches=1)
-    res = dryrun.run_cell(SMOKE, shape, mesh=StandInMesh((1, 1)), policy=policy)
+    on a (1, 1) mesh the dry-run's argument bytes are the Σ nbytes of the
+    parameters and optimizer state a training run holds, plus its batch."""
+    res = fake_runs["yardstick"]
     model = LanguageModel(tconfigs.get(SMOKE)).init(torch.Generator().manual_seed(0),
                                                     device="cpu")
     state = init_opt_state(model.params, OptimConfig())
@@ -270,58 +500,91 @@ def test_argument_bytes_equal_an_allocated_state():
     assert res["argument_bytes_per_device"] == held
 
 
-def test_collective_bytes_by_hand():
-    """tinyllama smoke's training cell: none on one device; on (4, 1) only
-    FSDP (every leaf has a 64-wide "embed" dim, so each is split 4 ways):
-    each weight gathered at its use and, inside the blocks, again in the
-    recompute, and each gradient reduce-scattered, (4 - 1)/4 of its bytes a
-    time; on (1, 4) the embedding and LM head gathered over "model" (vocab
-    over "model"), and the sequence-parallel gather and reduce-scatter
-    around the 2 x 2 attention and FFN sites in the forward, recompute and
-    backward, plus the loss's gather and its gradient's reduce-scatter; on
-    (2, 1, 1) ("pod", "data", "model") each gradient all-reduced over
-    "pod"."""
+def test_collective_bytes_by_hand(fake_runs):
+    """tinyllama smoke's training cell (8 x 320; L = 2 layers, d = 64, 4
+    heads and 2 KV heads of 16, F = 128, V = 256), the collectives its mesh
+    path issues, in the module docstring's bytes (an all-gather (n-1) x its
+    input, a reduce-scatter (n-1)/n of its input, an all-reduce 2(n-1)/n):
+
+    * (1, 1): none.
+    * (4, 1), FSDP over "data" (n = 4; every weight has a 64-wide "embed"
+      dim, split 4 ways), mb = 2 microbatches (2 rows a rank): each
+      projection of a block gathered at its use in the forward, again in the
+      remat recompute and again in the backward (``DTensor`` re-gathers the
+      weight for the input's gradient), the FFN's down projection twice (the
+      recompute stops before the block's last product), the norms' scales
+      likewise three times but in fp32 (the norm casts them first); the
+      embedding and the LM head once a microbatch (read whole through
+      ``layers.on_rows``), the final norm's scale twice (forward and
+      backward, fp32); each gradient reduce-scattered once a microbatch; the
+      loss's two fp32 sums a microbatch and the gradient norm's two a step
+      all-reduced; and the batch's three int32 keys gathered once (mb = 2
+      does not divide the 4 ranks the rows lie on, so the microbatch split
+      gathers them first).
+    * (1, 4), sequence parallel over "model" (n = 4), mb = 4 (b = 2 rows,
+      X = b S d bf16 bytes of the stream): the stream gathered before each
+      attention and FFN in the forward and the recompute, and in the
+      backward of each of their outputs' reduce-scatters, plus the loss's
+      gather and one more in its backward (14 a microbatch); reduce-scattered
+      after each in the forward, after the attention in the recompute, and
+      in the backward of each gather (10); the 2 KV heads, which do not
+      divide "model", gathered whole for k and v in the forward and the
+      recompute (``attention.whole_heads``) and their gradients
+      reduce-scattered; the embedding and the LM head (vocab over "model")
+      gathered once a microbatch; the norms' gradients (partial over the
+      sequence shards) all-reduced once a microbatch; the gradient norm's
+      two sums.
+    * the decode cell on (1, 4): the 2 KV heads do not divide "model", so
+      the cache's sequence lies over it and each layer merges the ranks'
+      K3 partial results with three fp32 all-reduces (``combine_partials``:
+      max lse, Σw out, Σw)."""
     cfg = tconfigs.get(SMOKE)
+    L, d, h, kvh, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shape = SMALL["train_4k"]
     full = {k: t.numel() * 2 for k, t in flat(abstract_params(
         LanguageModel(cfg).specs())).items()}
-    in_blocks = sum(v for k, v in full.items() if k.startswith("layers/"))
-    others = sum(v for k, v in full.items() if not k.startswith("layers/"))
-    head = full["emb/embedding"] + full["emb/lm_head"]
+    in_blocks = sum(v_ for k, v_ in full.items() if k.startswith("layers/"))
+    others = sum(v_ for k, v_ in full.items() if not k.startswith("layers/"))
+    norms = sum(v_ for k, v_ in full.items() if k.startswith("layers/ln"))
+    down = full["layers/ffn/w_down"]
+    emb, head, ln_f = full["emb/embedding"], full["emb/lm_head"], full["ln_f/scale"]
 
-    one = dryrun.run_cell(SMOKE, shape, mesh=StandInMesh((1, 1)))
+    one = fake_runs[f"{SMOKE}|train_4k|(1, 1)"]
     assert one["collective_bytes_per_device"] == 0
-    assert all(v == 0 for v in one["collectives"]["by_term"].values())
+    assert all(n == 0 for n in one["collectives"]["calls"].values())
 
-    fsdp = dryrun.run_cell(SMOKE, shape, mesh=StandInMesh((4, 1)))
-    mb = 2                                    # 8 rows over 4: 2 a rank, policy 4
+    fsdp = fake_runs[f"{SMOKE}|train_4k|(4, 1)"]
+    mb, g = 2, 3 / 4                          # 8 rows over 4: 2 a rank, policy 4
     assert fsdp["microbatches"] == mb
-    want = mb * 3 / 4 * (3 * in_blocks + 2 * others)
-    assert fsdp["collective_bytes_per_device"] == pytest.approx(want, rel=1e-12)
-    assert fsdp["collectives"]["by_kind"]["all-reduce"] == 0
+    kinds = fsdp["collectives"]["by_kind"]
+    gathered = (3 * (in_blocks - norms) - down + 3 * 2 * norms + emb + head + 2 * 2 * ln_f)
+    batch_keys = 3 * shape.global_batch * shape.seq_len * 4
+    assert kinds["all-gather"] == pytest.approx(mb * g * gathered + g * batch_keys, rel=1e-12)
+    assert kinds["reduce-scatter"] == pytest.approx(mb * g * (in_blocks + others), rel=1e-12)
+    assert kinds["all-reduce"] == pytest.approx((2 * mb + 2) * 2 * g * 4, rel=1e-12)
+    assert kinds["all-to-all"] == 0
 
-    sp = dryrun.run_cell(SMOKE, shape, mesh=StandInMesh((1, 4)))
+    sp = fake_runs[f"{SMOKE}|train_4k|(1, 4)"]
     mb = 4
     assert sp["microbatches"] == mb
-    x = (8 // mb) * shape.seq_len * cfg.d_model * 2
-    sites, passes = 2 * cfg.n_layers, 3
-    want = mb * (3 / 4 * head + 3 / 4 * x * (sites * passes * 2 + 2))
-    assert sp["collective_bytes_per_device"] == pytest.approx(want, rel=1e-12)
-    assert sp["collectives"]["by_kind"]["all-reduce"] == 0
-    # over "pod" alone (weights never shard over it) each gradient is
-    # all-reduced, 2 (2 - 1)/2 of its bytes, at each of 4 microbatches
-    pod = dryrun.run_cell(SMOKE, shape, mesh=StandInMesh((2, 1, 1), ("pod", "data", "model")))
-    assert pod["microbatches"] == 4
-    assert pod["collective_bytes_per_device"] == pytest.approx(4 * (in_blocks + others),
-                                                               rel=1e-12)
-    assert pod["collectives"]["by_term"]["grad_all_reduce"] == pod["collective_bytes_per_device"]
-    # a decode step's one token cannot shard over "model": all-reduces there
-    dec = dryrun.run_cell(SMOKE, SMALL["decode_32k"], mesh=StandInMesh((1, 4)))
-    assert dec["collectives"]["by_term"]["sp_all_reduce"] == pytest.approx(
-        2 * cfg.n_layers * 2 * 3 / 4 * 8 * cfg.d_model * 2, rel=1e-12)
+    kinds = sp["collectives"]["by_kind"]
+    b = shape.global_batch // mb
+    x = b * shape.seq_len * d * 2
+    kv = b * shape.seq_len * kvh * hd * 2         # k or v, whole
+    assert kinds["all-gather"] == pytest.approx(
+        mb * g * (14 * x + 2 * L * 2 * kv + emb + head), rel=1e-12)
+    assert kinds["reduce-scatter"] == pytest.approx(mb * g * (10 * x + 2 * L * kv), rel=1e-12)
+    assert kinds["all-reduce"] == pytest.approx(mb * 2 * g * (norms + ln_f) + 2 * 2 * g * 4,
+                                                rel=1e-12)
+
+    dec = fake_runs[f"{SMOKE}|decode_32k|(1, 4)"]
+    rows = SMALL["decode_32k"].global_batch
+    assert dec["collectives"]["calls"]["all-reduce"] == 3 * L
+    assert dec["collectives"]["by_kind"]["all-reduce"] == pytest.approx(
+        L * 2 * g * 4 * (2 * rows * h + rows * h * hd), rel=1e-12)
 
 
-def test_dense_flops_by_closed_form():
+def test_dense_flops_by_closed_form(fake_runs):
     """tinyllama smoke's training step on one device: per microbatch of b
     rows and T = b S tokens, each layer's products P = 2T(dHh + 2dKh + Hhd +
     3dF) and attention units A = 2bHS^2h (the plain versions' full square)
@@ -334,7 +597,7 @@ def test_dense_flops_by_closed_form():
     chunk's recompute, two gradients)."""
     cfg = tconfigs.get(SMOKE)
     shape = SMALL["train_4k"]
-    res = dryrun.run_cell(SMOKE, shape, mesh=StandInMesh((1, 1)))
+    res = fake_runs[f"{SMOKE}|train_4k|(1, 1)"]
     mb = res["microbatches"]
     b, s = shape.global_batch // mb, shape.seq_len
     d, h, kvh, hd, f, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
@@ -344,6 +607,91 @@ def test_dense_flops_by_closed_form():
     a = 2 * b * h * s * s * hd
     want = mb * (cfg.n_layers * (4 * p - 2 * t * f * d + 11 * a) + 4 * 2 * t * d * v)
     assert res["flops_per_device"] == pytest.approx(want, rel=FLOP_RTOL)
+
+
+def test_a_pod_mesh_runs_each_cell(fake_runs):
+    """The reference's multi-pod layout, ("pod", "data", "model") of (2, 1,
+    1): the training cell runs; the weights and their state replicate over
+    "pod" and the batch splits over it, so its argument bytes are the (1, 1)
+    cell's less half the batch's.
+
+    Its collectives are pinned at what the port sends today, which is not
+    right (ROADMAP queue 3, open: the ops that run on local shards name no
+    "pod", so over it they gather the batch). A batch split over ("pod",
+    "data") needs the gradients' all-reduce alone, mb x 2(n-1)/n x the
+    parameters' bytes; a repair, or a fault that grows, changes these
+    numbers. With n = 2, mb = 4 microbatches of one row a rank (S = 320, d =
+    64, X = S d bf16 bytes of a row of the stream), over "pod":
+
+    * all-gathered, each its local row ((n-1) x its input): a microbatch's
+      tokens for the embedding and labels for the loss (int32), the loss's
+      stream rows, three rows of the backward's gradients, q (H hd = d) in
+      the forward and the recompute of each layer, and k and v (2 KV heads
+      of 4) likewise; and the split batch's three int32 keys once;
+    * all-reduced, once a microbatch: every gradient but the embedding's,
+      the LM head's (the whole batch's loss runs on each pod) and one of
+      the attention's two 64 x 64 projections' (its stacked layers), which
+      each pod already holds whole."""
+    pod, one = fake_runs["train|(2, 1, 1)"], fake_runs[f"{SMOKE}|train_4k|(1, 1)"]
+    assert pod["status"] == "ok" and pod["chips"] == 2 and pod["mesh"] == "2x1x1"
+    shape = SMALL["train_4k"]
+    batch = 3 * shape.global_batch * shape.seq_len * 4
+    assert pod["argument_bytes_per_device"] == one["argument_bytes_per_device"] - batch / 2
+
+    cfg = tconfigs.get(SMOKE)
+    L, s_, d = cfg.n_layers, shape.seq_len, cfg.d_model
+    kv_share = cfg.n_kv_heads / cfg.n_heads
+    full = {k: t.numel() * 2 for k, t in flat(abstract_params(
+        LanguageModel(cfg).specs())).items()}
+    mb = 4
+    assert pod["microbatches"] == mb
+    x = s_ * d * 2
+    gathered = mb * (2 * s_ * 4 + x + 3 * x + 2 * L * x + 2 * 2 * L * kv_share * x) + batch / 2
+    reduced = mb * (sum(full.values()) - full["emb/embedding"] - full["emb/lm_head"]
+                    - full["layers/attn/wo"])
+    kinds = pod["collectives"]["by_kind"]
+    assert kinds["all-gather"] == pytest.approx(gathered, rel=1e-12)
+    assert kinds["all-reduce"] == pytest.approx(reduced, rel=1e-12)
+    assert kinds["reduce-scatter"] == kinds["all-to-all"] == 0
+    right = mb * sum(full.values())
+    assert pod["collective_bytes_per_device"] != right
+
+
+def test_fake_mesh_refuses_an_existing_group(fake_runs):
+    """``fake_mesh`` starts the process's default group: where one exists
+    (here a one-rank gloo group) it raises and starts nothing."""
+    assert "already has a process group" in fake_runs["refused"]
+
+
+def test_train_step_takes_the_references_microbatch_placements(reference_on):
+    """The dry-run's training step is built with the parameters' placements
+    for its gradients and, for its split batch, the batch's placements
+    behind a replicated microbatch dim: the reference's ``mb_shard``
+    (``src/repro/launch/dryrun.py:66-69``) over its batch specs, on every
+    mesh of ``SPEC_MESHES``."""
+    for mesh_shape in SPEC_MESHES:
+        ref_mesh = reference_on(mesh_shape)
+        _, ref = reference_args(SMOKE, "train_4k", ref_mesh)
+        kind, _, _, (param_sh, _, batch_sh) = input_specs(SMOKE, "train_4k",
+                                                          StandInMesh(mesh_shape))
+        assert kind == "train"
+        got = dryrun.microbatch_shardings(batch_sh)
+        assert sorted(got) == sorted(ref["batch"])
+        for k, a in ref["batch"].items():
+            assert norm(got[k].spec) == norm((None, *a.sharding.spec)), k
+        captured = {}
+
+        def fake_make(model, opt_cfg, compression, microbatches, grad_shardings,
+                      batch_shardings):
+            captured.update(grad=grad_shardings, batch=batch_shardings)
+
+        import unittest.mock
+        with unittest.mock.patch.object(dryrun, "make_train_step", fake_make):
+            dryrun.build_step("train", None, msm.TRAIN_MSM, SMALL["train_4k"], 4,
+                              (param_sh, None, batch_sh))
+        assert captured["grad"] is param_sh
+        assert {k: norm(s.spec) for k, s in captured["batch"].items()} == \
+            {k: norm(s.spec) for k, s in got.items()}
 
 
 def test_step_counter_tracks_live_storage():
@@ -370,22 +718,22 @@ def test_step_counter_tracks_live_storage():
     assert inplace.peak == 0
 
 
-def test_cli_sweeps_caches_and_reports(tmp_path, capsys):
-    out = tmp_path / "res.json"
-    argv = ["--arch", SMOKE, "--shape", "long_500k", "--both-meshes", "--out", str(out)]
-    assert dryrun.main(argv) == 0
-    res = json.loads(out.read_text())
-    assert sorted(res) == [f"{SMOKE}|long_500k|16x16", f"{SMOKE}|long_500k|2x16x16"]
-    assert all(r["status"] == "skipped" for r in res.values())
-    assert dryrun.main(["--arch", "zamba2-1.2b-smoke", "--shape", "long_500k",
-                        "--both-meshes", "--out", str(out)]) == 0
-    res = json.loads(out.read_text())
-    pod, single = (res[f"zamba2-1.2b-smoke|long_500k|{m}"] for m in ("2x16x16", "16x16"))
-    assert single["status"] == pod["status"] == "ok"
-    assert (single["chips"], pod["chips"]) == (256, 512)
-    assert pod["flops_per_device"] == single["flops_per_device"] / 2
-    capsys.readouterr()
-    assert dryrun.main(argv) == 0
-    printed = capsys.readouterr().out
-    assert f"[cached] {SMOKE}|long_500k|16x16: skipped" in printed
-    assert "Summary: 2 ok, 2 skipped, 0 errors" in printed
+def test_cli_sweeps_caches_and_reports(fake_runs):
+    """``main``: a cell the reference skips, on both meshes; an SSM cell on
+    both (256 and 512 ranks, each its own step: the 2x16x16 cell's batch of
+    one splits over no "pod"); each decode shape again with an int8 cache;
+    the first sweep again, from the cache."""
+    first, ssm, again = fake_runs["cli"]
+    assert first["code"] == ssm["code"] == again["code"] == 0
+    keys = [f"{SMOKE}|long_500k{v}|{m}" for v in ("", "+kv_int8") for m in ("16x16", "2x16x16")]
+    assert sorted(first["records"]) == sorted(keys)
+    assert all(first["records"][k]["status"] == "skipped" for k in keys)
+    for variant, dtype in (("", "bfloat16"), ("+kv_int8", "int8")):
+        single, pod = (ssm["records"][f"zamba2-1.2b-smoke|long_500k{variant}|{m}"]
+                       for m in ("16x16", "2x16x16"))
+        assert single["status"] == pod["status"] == "ok"
+        assert single["kv_cache_dtype"] == pod["kv_cache_dtype"] == dtype
+        assert (single["chips"], pod["chips"]) == (256, 512)
+        assert single["flops_per_device"] > 0 and pod["flops_per_device"] > 0
+    assert f"[cached] {SMOKE}|long_500k|16x16: skipped" in again["printed"]
+    assert "Summary: 4 ok, 4 skipped, 0 errors" in again["printed"]

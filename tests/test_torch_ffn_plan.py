@@ -11,6 +11,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.fused_ffn import (H_CHUNK_BYTES, TILE_F, TILED_MIN_T, TILED_ROWS,
                                            chunk_spans, ffn_plan, fused_ffn, fused_ffn_plain,
                                            round_up, tiled_chunk_rows)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 TS = [1, 4, 255, 256, 333, 1025, 2048, 8192]
 FS = [1000, 5632, 8192]

@@ -18,6 +18,7 @@ from repro_torch.models import LanguageModel
 from repro_torch.models.base import count_params
 from repro_torch.models.layers import logits_for_tokens
 from repro_torch.serve.step import make_prefill_step
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ARCHS = ["mamba2-1.3b", "zamba2-1.2b"]
 SMOKES = [a + "-smoke" for a in ARCHS]

@@ -15,6 +15,7 @@ from repro.models.attention import naive_attention as jax_naive_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.flash_decode import flash_decode_plain
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 # the tolerances of tests/test_kernels.py:14; bf16 carries ~3 decimal digits
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -13,6 +13,7 @@ import repro.models.layers as jlayers
 import repro_torch.configs as tconfigs
 import repro_torch.models.attention as tattn
 import repro_torch.models.layers as tlayers
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 TOL = 3e-5
 

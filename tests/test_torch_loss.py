@@ -20,6 +20,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import LanguageModel
 from repro_torch.models.layers import chunked_cross_entropy
 from repro_torch.train.optim import tree_leaves
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 SMOKE = "tinyllama-1.1b-smoke"
 

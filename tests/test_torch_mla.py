@@ -32,6 +32,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.base import count_params
 from repro_torch.models.layers import logits_for_tokens
 from repro_torch.serve.step import make_prefill_step
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ARCH = "deepseek-v2-236b"
 SMOKE = ARCH + "-smoke"

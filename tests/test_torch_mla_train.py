@@ -30,6 +30,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import LanguageModel
 from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import tree_leaves
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 SMOKE = "deepseek-v2-236b-smoke"
 # the tolerances of tests/test_kernels.py:14; bf16 carries ~3 decimal digits

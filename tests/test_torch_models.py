@@ -17,6 +17,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import LanguageModel
 from repro_torch.models.base import P, count_params
 from repro_torch.models.layers import logits_for_tokens
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 DENSE = ["tinyllama-1.1b", "yi-6b", "mistral-nemo-12b", "granite-3-2b"]
 SMOKE = "tinyllama-1.1b-smoke"

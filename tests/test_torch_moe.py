@@ -30,6 +30,7 @@ from repro_torch.models.layers import logits_for_tokens
 from repro_torch.serve.step import make_prefill_step
 from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import tree_leaves
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ARCH = "qwen3-moe-235b-a22b"
 SMOKE = ARCH + "-smoke"

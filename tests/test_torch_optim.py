@@ -17,6 +17,7 @@ from repro_torch.train import (OptimConfig, apply_updates, init_opt_state, init_
 from repro_torch.train.optim import _dither_round_bf16, _stochastic_round_bf16, tree_leaves
 from repro_torch.train.step import (compress_grads, dequantize_int8, init_ef_state,
                                     quantize_int8)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 
 # ---- ports of tests/test_optim.py -------------------------------------------------

@@ -8,6 +8,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"

@@ -29,6 +29,7 @@ from repro_torch.distributed import pipeline
 from test_torch_package import needs_no_card
 from test_torch_sharding import ROOT, RANKS_TIMEOUT, run_ranks
 from torch.distributed.tensor import Replicate, Shard
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 M, MB, D = 8, 2, 16
 # name: (shape, dim names); the stages are the "pipe" dim's size

@@ -33,6 +33,7 @@ from repro_torch.train.optim import tree_leaves
 from test_torch_audio import UnrolledReference
 from test_torch_serve_mesh import jax_tree
 from test_torch_sharding import port_mesh, run_ranks
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 # name: (arch, mesh shape, fused_ffn)
 CASES = {

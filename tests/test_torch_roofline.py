@@ -17,6 +17,7 @@ from repro.core import roofline as jroofline
 import repro_torch.configs as tconfigs
 from repro_torch.configs.base import cell_is_runnable
 from repro_torch.core import hw, msm, roofline
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 CELLS = [(a, s) for a in sorted(tconfigs.ARCHS) for s in tconfigs.SHAPES]
 # 0.70 x 80e9 x 256 = 1.43e13 bytes on 256 H100s: no configuration needs the

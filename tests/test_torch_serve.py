@@ -14,6 +14,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.models import LanguageModel
 from repro_torch.serve.step import make_decode_step, make_prefill_step
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 SMOKE = "tinyllama-1.1b-smoke"
 BATCH, PROMPT, STEPS, MAX_LEN = 2, 8, 16, 32

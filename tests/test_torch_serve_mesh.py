@@ -4,7 +4,8 @@
 and the reference's ``LanguageModel.decode_step`` on the same weights.
 
 One 4-rank ``gloo`` launch (``test_torch_sharding.run_ranks``) serves nine
-mesh/config cases and records what the tests below read; each test process
+mesh/config cases, takes one decode step on an int8 cache in two more
+(``INT8_CASES``), and records what the tests below read; each test process
 holds its own side (the unsharded port, the reference) against it:
 
 * granite-3-2b smoke on (1, 4): 2 KV heads do not divide "model", so the
@@ -50,6 +51,7 @@ import repro_torch.configs as tconfigs
 from repro_torch.launch import serve as tserve
 from repro_torch.models import LanguageModel
 from test_torch_sharding import run_ranks
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 # name: (arch, mesh shape, batch, fused_ffn, impl)
 CASES = {
@@ -72,7 +74,21 @@ ENC_LEN = 16
 MAIN_ARGS = ["--arch", "tinyllama-1.1b-smoke", "--device", "cpu", "--batch", "2",
              "--prompt-len", "4", "--gen", "3", "--max-len", "16"]
 MAIN_AUDIO_ARGS = ["--arch", "whisper-base-smoke", *MAIN_ARGS[2:]]
-SHARED = ("CASES", "PROMPT", "STEPS", "MAX_LEN", "ENC_LEN", "MAIN_ARGS", "MAIN_AUDIO_ARGS")
+# one decode step on an int8 cache (``init_cache(dtype=torch.int8)``, every
+# leaf seeded): name: (arch, config changes, mesh shape, batch). granite at
+# 3 heads and 1 KV head, batch 1, on (2, 2): heads that do not divide
+# "model" read whole at a batch of one (``attention.whole_heads``), the
+# cache's sequence over "data", K3's partial plain version and the combine
+# on int8 rows; deepseek-v2 on (1, 4): MLA's int8 latent cache's sequence
+# over "model", the softmax taken over the whole sequence
+INT8_CASES = {
+    "granite_2x2_int8_heads3_batch1": ("granite-3-2b-smoke", {"n_heads": 3, "n_kv_heads": 1},
+                                       (2, 2), 1),
+    "deepseek_v2_1x4_int8_latent": ("deepseek-v2-236b-smoke", {}, (1, 4), 2),
+}
+INT8_POS = 9
+SHARED = ("CASES", "PROMPT", "STEPS", "MAX_LEN", "ENC_LEN", "MAIN_ARGS", "MAIN_AUDIO_ARGS",
+          "INT8_CASES", "INT8_POS")
 
 
 def prompts(vocab: int, batch: int) -> np.ndarray:
@@ -115,6 +131,22 @@ def port_model(arch: str, fused: bool, impl: str = "kernel") -> LanguageModel:
     """The seeded fp32 model every rank builds too."""
     model = LanguageModel(tconfigs.get(arch), impl=impl, fused_ffn=fused)
     return model.init(torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+
+
+def int8_case(name):
+    """An ``INT8_CASES`` case's seeded fp32 model, its int8 cache (every
+    leaf seeded over int8's range; an SSM state would stay fp32) and its
+    tokens, the same on every rank and in the test."""
+    import dataclasses
+    arch, changes, _, batch = INT8_CASES[name]
+    model = LanguageModel(dataclasses.replace(tconfigs.get(arch), **changes))
+    model.init(torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+    cache = model.init_cache(batch, MAX_LEN, dtype=torch.int8)
+    rng = np.random.default_rng(list(name.encode()))
+    cache = {k: torch.tensor(rng.integers(-128, 128, tuple(v.shape)).astype(np.int8))
+             for k, v in sorted(cache.items())}
+    tokens = torch.tensor(rng.integers(0, model.cfg.vocab_size, (batch, 1)).astype(np.int32))
+    return model, cache, tokens
 
 
 # every rank: each case through ServingEngine(mesh=), the engine's layer view
@@ -172,6 +204,21 @@ SERVE_RANKS = """
                             "row_reads_back": bool(torch.equal(full[1, :, 9], row)),
                             "nothing_else_written": int((full != 0).sum()) == row.numel()}
 
+    # one decode step on an int8 cache in cache_shardings' placements
+    from repro_torch.sharding.partition import device_put
+    for name, (_, _, shape, batch) in INT8_CASES.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        model, cache, tokens = int8_case(name)
+        model.load_params(device_put(model.params, param_shardings(
+            model.axes(), model.specs(), mesh, fsdp=True)))
+        cache = device_put(cache, cache_shardings(cache, mesh, shard_seq=batch == 1))
+        with torch.no_grad():
+            logits, cache = model.decode_step(cache, tokens, INT8_POS)
+        result[name] = {k: named(v.placements) for k, v in cache.items()}
+        arrays[f"{name}/logits"] = logits.full_tensor().numpy()
+        for k, v in cache.items():
+            arrays[f"{name}/cache/{k}"] = v.full_tensor().numpy()
+
     # the entry point: --mesh-model 2 over the 4 ranks, a (2, 2) mesh; then
     # the encoder-decoder, its cross caches as the engine leaves them (zeros),
     # its parameters in fp32 (see test_serve_main_audio_through_a_mesh_...)
@@ -195,7 +242,7 @@ def served(tmp_path_factory):
     out = str(tmp / "out.npz")
     shared = "".join(f"{name} = {globals()[name]!r}\n" for name in SHARED)
     source = "".join(inspect.getsource(f) for f in (prompts, cross_values, seed_cross,
-                                                     fp32_init, port_model))
+                                                     fp32_init, port_model, int8_case))
     imports = ("import contextlib\nimport functools\n"
                "import numpy as np\nimport repro_torch.configs as tconfigs\n"
                "from repro_torch.models import LanguageModel\n")
@@ -291,6 +338,31 @@ def test_cache_leaves_lie_in_cache_shardings_and_read_back(served, case):
         np.testing.assert_allclose(full, want.numpy(), atol=1e-5, rtol=0, err_msg=leaf)
         if leaf not in ("conv", "ssm", "cross_k", "cross_v"):
             assert np.abs(full[:, :, last]).max() > 0 and not full[:, :, last + 1:].any(), leaf
+
+
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_cache_decode_on_the_mesh_equals_the_unsharded_port(served, case):
+    """One decode step on an int8 cache through the mesh, its sequence
+    sharded (checked), against the same step without a mesh:
+    every cache leaf equal to the bit (the new row truncated and saturated
+    as JAX casts it, on the rank that holds it), the logits within 1e-5 for
+    MLA, whose int8 context is exact, and for GQA by relative norm within
+    2e-2: each rank's shard sums its bf16 weights times its int8 rows in
+    bf16 (the reference's arithmetic) before the fp32 combine."""
+    result, arrays = served
+    model, cache, tokens = int8_case(case)
+    with torch.no_grad():
+        logits, cache = model.decode_step(cache, tokens, INT8_POS)
+    assert sorted(result[case]) == sorted(cache)
+    for k, v in cache.items():
+        assert v.dtype == torch.int8, k
+        np.testing.assert_array_equal(arrays[f"{case}/cache/{k}"], v.numpy(), err_msg=k)
+        assert "Shard(2)" in result[case][k], (k, result[case][k])    # (L, B, S, ...)
+    got, want = arrays[f"{case}/logits"], logits.numpy()
+    if model.cfg.use_mla:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 2e-2
 
 
 def test_sequence_sharded_cases_shard_the_sequence(served):

@@ -38,6 +38,7 @@ from repro_torch.sharding import partition
 from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import tree_leaves
 from torch.distributed.tensor import Replicate, Shard
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MESHES = [(1, 1), (2, 2), (4, 2)]
@@ -331,7 +332,7 @@ TRAIN_2X2 = """
     model, sh = sharded_model()
     opt_cfg = OptimConfig(**opt_kw)
     opt = device_put(init_opt_state(model.params, opt_cfg), state_shardings(sh, opt_cfg, mesh))
-    bsh = NamedSharding(mesh, batch_spec(mesh))
+    bsh = NamedSharding(mesh, (None, *batch_spec(mesh)))     # the microbatch dim first
     step = make_train_step(model, opt_cfg, microbatches=2, grad_shardings=sh,
                            batch_shardings={k: bsh for k in ("tokens", "labels", "positions")})
     losses = []

@@ -71,7 +71,7 @@ MOE_2X2 = """
     out_path = args[0]
     mesh = make_host_mesh(model=2, device="cpu")
     cpu = torch.device("cpu")
-    bsh = {k: NamedSharding(mesh, batch_spec(mesh)) for k in ("tokens", "labels")}
+    bsh = {k: NamedSharding(mesh, (None, *batch_spec(mesh))) for k in ("tokens", "labels")}
     data_rank, data_size = mesh.get_local_rank("data"), mesh.size(0)
     result, arrays = {}, {}
 

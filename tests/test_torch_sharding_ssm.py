@@ -151,15 +151,16 @@ SSM_MESHES = """
                                   opt["mu"]["layers"]["mixer"].items()}}
             arrays.update({f"{tag}/param__{i}": a for i, a in enumerate(full(model.params))})
 
-    def sharded_attention(tag, cfg, op, specs, dtype=torch.float32):
+    def sharded_attention(tag, cfg, op, specs, dtype=torch.float32, dout_layout=None):
         # forward and backward of op on the mesh in the reference's
-        # placements, its output and gradients under "{tag}/"
+        # placements, its output and gradients under "{tag}/"; the output's
+        # cotangent in the output's placements, or in dout_layout
         params, x, positions, dout = attention_inputs(cfg, specs, dtype)
         params = {k: v.requires_grad_() for k, v in
                   device_put(params, param_shardings(axes_tree(specs), specs, mesh)).items()}
         dx = distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_()
         out = op(params, cfg, dx, positions, impl="kernel")
-        out.backward(distribute_tensor(dout, mesh, out.placements))
+        out.backward(distribute_tensor(dout, mesh, dout_layout or out.placements))
         arrays[f"{tag}/out"] = out.full_tensor().detach().numpy()
         arrays[f"{tag}/dx"] = dx.grad.full_tensor().numpy()
         arrays.update({f"{tag}/d{name}": p.grad.full_tensor().numpy()
@@ -174,6 +175,9 @@ SSM_MESHES = """
     for kind in QUERY_HEADS:
         result[f"heads6_{kind}"] = sharded_attention(f"heads6_{kind}", *query_heads_case(kind),
                                                      QUERY_HEADS_DTYPE)
+        # the cotangent "model"-replicated, as a loss hands it back
+        sharded_attention(f"heads6r_{kind}", *query_heads_case(kind), QUERY_HEADS_DTYPE,
+                          dout_layout=[Shard(0), Replicate()])
     if rank == 0:
         np.savez(out_path, **arrays)
         with open(out_path + ".json", "w") as f:
@@ -355,4 +359,29 @@ def test_query_heads_that_do_not_divide_model(ssm_meshes, kind):
         k for k in arrays if k.startswith(f"heads6_{kind}/"))
     for name, w in want.items():
         np.testing.assert_allclose(arrays[f"heads6_{kind}/{name}"], w.detach().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", sorted(QUERY_HEADS))
+def test_query_heads_with_a_replicated_cotangent(ssm_meshes, kind):
+    """The cases of ``test_query_heads_that_do_not_divide_model`` with the
+    output's cotangent "model"-replicated, as a loss hands it back (and as
+    the dry-run's 16 x 16 training cells do): the output projection's
+    backward then gives the flattened heads' gradient over "model", which
+    the attention output's flatten must take back whole
+    (``attention.merge_heads``; it raised ``Cannot unflatten unevenly
+    sharded tensor`` before). Every gradient within 1e-5 of the unsharded
+    op."""
+    _, arrays = ssm_meshes
+    cfg, op, specs = query_heads_case(kind)
+    params, x, positions, dout = attention_inputs(cfg, specs, QUERY_HEADS_DTYPE)
+    for p in (*params.values(), x):
+        p.requires_grad_()
+    out = op(params, cfg, x, positions, impl="kernel")
+    out.backward(dout)
+    want = {"out": out, "dx": x.grad, **{f"d{k}": p.grad for k, p in params.items()}}
+    assert sorted(f"heads6r_{kind}/{name}" for name in want) == sorted(
+        k for k in arrays if k.startswith(f"heads6r_{kind}/"))
+    for name, w in want.items():
+        np.testing.assert_allclose(arrays[f"heads6r_{kind}/{name}"], w.detach().numpy(),
                                    atol=1e-5, rtol=0, err_msg=name)

@@ -23,6 +23,7 @@ from repro_torch.kernels.ssd_scan import (CHUNK, HEAD_DIMS, MMA_ACC_REGS, MMA_ST
                                           MMA_STATES, MMA_WARPS, ROUTES, SMEM_MAX,
                                           mma_acc_regs, mma_smem_bytes, ssd_plan, ssd_scan,
                                           ssd_scan_plain)
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 CU = (pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "csrc"
       / "ssd_scan.cu").read_text()

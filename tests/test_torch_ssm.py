@@ -22,6 +22,7 @@ from repro_torch.kernels.fused_ffn import TILE_F, fused_ffn_plain, split_plan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import LanguageModel, ssm
 from repro_torch.models.layers import ffn
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 # the tolerances of tests/test_kernels.py:14; fused_ffn is held at 5x them
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -24,6 +24,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import LanguageModel
 from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import tree_leaves
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 SMOKES = ["mamba2-1.3b-smoke", "zamba2-1.2b-smoke"]
 

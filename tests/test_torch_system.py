@@ -20,6 +20,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.serve import ServingEngine
 from repro_torch.models import LanguageModel
 from repro_torch.train.optim import tree_leaves, tree_map
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 SMOKE = "tinyllama-1.1b-smoke"
 CPU = torch.device("cpu")

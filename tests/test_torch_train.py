@@ -21,6 +21,7 @@ from repro_torch.models import LanguageModel
 from repro_torch.train import OptimConfig, init_opt_state, make_train_step
 from repro_torch.train.optim import tree_leaves
 import repro_torch.configs as tconfigs
+from torch_threads import shared_cores  # noqa: F401  (autouse: the worker's share of the cores)
 
 SMOKE = "tinyllama-1.1b-smoke"
 
