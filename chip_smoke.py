@@ -12,6 +12,10 @@ Phases, one JSON object a line:
            instances and the bf16 instances at MLA's head dims of K1
            (attn_fwd_mma<192,128>), K2a (attn_bwd_dq_mma<192,128,32>) and
            K2b (attn_bwd_dkv_mma<192,128,16>) must not spill
+  check    the static analyser (`repro_torch.check`) over its catalog, from
+           the kernels' launch plans, K3's cluster sizes as `launch_plan`
+           picks them on this card, R5 reading the build's ptxas report:
+           cases, launch plans, findings (any unwaived one fails) and seconds
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
            training shape and at MLA's (deepseek-v2-236b's heads, head dims
            (192, 128)), with its plan
@@ -312,6 +316,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.check.ptxas import ptxas_report  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402  (the port's one source of peaks)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense rates), the
@@ -537,53 +542,6 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: fl
             "want_rms": float(w.square().mean().sqrt())}
 
 
-def kernel_name(mangled: str) -> str:
-    """The unqualified name in an Itanium-mangled function name:
-    ``_ZN<len><namespace><len><name>...`` or ``_Z<len><name>...``, with a
-    template's integer arguments (``I Li64E ... E``) as ``name<64,...>``."""
-    m = re.match(r"_Z(N?)", mangled)
-    if not m:
-        return mangled
-    pos, names = m.end(), []
-    while n := re.match(r"\d+", mangled[pos:]):
-        pos += n.end()
-        names.append(mangled[pos:pos + int(n.group())])
-        pos += int(n.group())
-        if not m.group(1):
-            break
-    if not names:
-        return mangled
-    args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", mangled[pos:])
-    if not args:
-        return names[-1]
-    return names[-1] + "<" + ",".join(re.findall(r"L[a-z]+(-?\d+)E", args.group(1))) + ">"
-
-
-def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of each kernel from ``nvcc -Xptxas -v``'s
-    output, by ``kernel_name`` (a template instance by its integer arguments,
-    ``attn_bwd_dkv_mma<128,32>``; where two entries share a name, the n-th
-    gets "#n")."""
-    report, entry, name = {}, None, None
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\w+)'", line):
-            entry = m.group(1)
-            name = base = kernel_name(entry)
-            n = 1
-            while name in report:
-                n += 1
-                name = f"{base}#{n}"
-            report[name] = {}
-        elif m := re.search(r"Function properties for (\w+)", line):
-            if m.group(1) != entry:
-                name = None          # a callee's properties, not the entry's
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            report[name]["registers"] = int(m.group(1))
-    return report
-
-
 def build_with_report() -> dict:
     """Builds the kernels with ``-Xptxas -v`` and returns ``ptxas_report``."""
     from repro_torch.kernels import build
@@ -592,6 +550,32 @@ def build_with_report() -> dict:
     with contextlib.redirect_stdout(out):
         build.build(verbose=True)
     return ptxas_report(out.getvalue())
+
+
+def phase_check(ptxas: dict) -> None:
+    """``repro_torch.check`` over its catalog on this card: K3's cluster of
+    each decode case from ``launch_plan`` (the occupancy query), R5 against
+    the build's ``ptxas`` report. Raises on any unwaived finding."""
+    from repro_torch.check import catalog
+    from repro_torch.check.rules import run_rules
+    from repro_torch.kernels.flash_decode import launch_plan
+
+    t0 = time.perf_counter()
+    clusters = {}
+
+    def decode_cluster(b, h, kvh, s, d, dtype, partial):
+        c = launch_plan(0, b, h, kvh, s, d, dtype, partial).cluster
+        clusters[f"B={b} H={h} KVH={kvh} S={s} D={d}{' partial' if partial else ''}"] = c
+        return c
+
+    facts = catalog.trace_all(decode_cluster=decode_cluster)
+    findings = run_rules(facts, ptxas=ptxas)
+    unwaived = [f.format() for f in findings if not f.waived]
+    emit({"phase": "check", "cases": len(catalog.case_names()), "launch_plans": len(facts),
+          "findings": len(unwaived), "waived": len(findings) - len(unwaived),
+          "decode_clusters": clusters, "seconds": time.perf_counter() - t0})
+    if unwaived:
+        raise AssertionError("check: unwaived findings:\n" + "\n".join(unwaived))
 
 
 def randn(gen, shape, dtype):
@@ -609,7 +593,8 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, dv=None,
     where it differs from q's and k's (MLA). Timed rows also name the
     kernels the library call ran (the backend ``sdpa`` picked)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (attn_fwd_plan, flash_attention,
+                                                     flash_attention_plain)
 
     dv = d if dv is None else dv
     q = randn(gen, (b, sq, h, d), dtype)
@@ -624,6 +609,7 @@ def check_flash_attention(gen, *, b, sq, skv, h, kvh, d, dtype, causal, dv=None,
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "KVH": kvh, "D": d,
                      **({"Dv": dv} if dv != d else {}),
                      "dtype": str(dtype).split(".")[-1], "causal": causal},
+           "plan": attn_fwd_plan(b, sq, skv, h, kvh, d, dv, dtype, causal).summary(),
            "tol": tol,
            "max_abs_err": compare("flash_attention out", out, want, tol),
            "lse_max_abs_err": compare("flash_attention lse", lse, want_lse, tol),
@@ -4101,6 +4087,7 @@ def main() -> int:
     if len(k5_mma) != 6 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
                                for r in k5_mma.values()):
         raise AssertionError(f"K5's mma instances must build without spills: {k5_mma}")
+    phase_check(ptxas)
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     vlm, moe, mla = configs.get(VLM_ARCH), configs.get(MOE_ARCH), configs.get(MLA_ARCH)

@@ -373,12 +373,11 @@ attn_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Sq, int Skv, int H, int KVH, float scale, int causal,
-                       cudaStream_t stream) {
+                       dim3 grid, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Sq + MMA_BM - 1) / MMA_BM);
   attn_fwd_mma<D, DV><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KVH,
@@ -389,37 +388,45 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
 template <int D, int DV>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int Sq, int Skv, int H, int KVH, float scale, int causal,
-                       cudaStream_t stream) {
+                       dim3 grid, cudaStream_t stream) {
   size_t smem =
       (size_t)(BM * D + BN * (D + 1) + BN * DV + BM * (BN + 1) + 3 * BM) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_fma<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BM - 1) / BM, H, B);
   attn_fwd_fma<D, DV><<<grid, 256, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, Sq, Skv, H, KVH, scale, causal);
   return cudaGetLastError();
 }
 
+// The grid the host's plan (`attn_fwd_plan`) launches: bf16 (B*H, q-tiles),
+// fp32 (q-tiles, H, B), one block for each (q-tile, head, batch).
+dim3 planned_grid(int B, int Sq, int H, int is_bf16) {
+  return is_bf16 ? dim3(B * H, (Sq + MMA_BM - 1) / MMA_BM, 1) : dim3((Sq + BM - 1) / BM, H, B);
+}
+
 }  // namespace
 
-// Returns 0, a cudaError_t, or -1 for a shape or type this file has no kernel
-// for ((D, Dv) one of (32, 32), (64, 64), (128, 128), (192, 128); H a multiple
-// of KVH; B, H and the q-tiles within the grids' limits). All tensors
-// contiguous in the layouts named at the top.
+// Returns 0, a cudaError_t, or -1 for a shape, type or grid this file has no
+// kernel for ((D, Dv) one of (32, 32), (64, 64), (128, 128), (192, 128); H a
+// multiple of KVH; B, H and the q-tiles within the grids' limits; the grid of
+// `attn_fwd_plan`). All tensors contiguous in the layouts named at the top.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Skv, int H, int KVH, int D,
-                                   int Dv, float scale, int causal, int is_bf16, void* stream) {
+                                   int Dv, float scale, int causal, int is_bf16, int grid_x,
+                                   int grid_y, int grid_z, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH != 0 || B > 65535 || H > 65535) return -1;
   // the bf16 grid is (B*H, q-tiles): x up to 2^31 - 1, y up to 65535
   if (is_bf16 && ((long long)B * H > 0x7fffffffLL || (Sq + MMA_BM - 1) / MMA_BM > 65535))
     return -1;
+  const dim3 grid(grid_x, grid_y, grid_z), want = planned_grid(B, Sq, H, is_bf16);
+  if (grid.x != want.x || grid.y != want.y || grid.z != want.z) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
 #define CASE(FN, DQ, DO)                                                              \
   if (D == DQ && Dv == DO)                                                            \
-    return (int)FN<DQ, DO>(q, k, v, o, lse_f, B, Sq, Skv, H, KVH, scale, causal, st);
+    return (int)FN<DQ, DO>(q, k, v, o, lse_f, B, Sq, Skv, H, KVH, scale, causal, grid, st);
 #define DISPATCH(FN) \
   CASE(FN, 32, 32) CASE(FN, 64, 64) CASE(FN, 128, 128) CASE(FN, 192, 128) return -1;
   if (is_bf16) {

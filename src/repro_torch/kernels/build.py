@@ -102,10 +102,11 @@ def load_library() -> ctypes.CDLL:
     (without them ``ctypes`` passes pointers as 32-bit ints)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # (q, k, v, out, lse, B, Sq, Skv, H, KVH, D, Dv, scale, causal, is_bf16, stream)
+    # (q, k, v, out, lse, B, Sq, Skv, H, KVH, D, Dv, scale, causal, is_bf16,
+    #  grid x, y, z, stream): the grid of `attn_fwd_plan`
     lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                         i32, i32, i32, i32, i32, i32, i32,
-                                        f32, i32, i32, ptr]
+                                        f32, i32, i32, i32, i32, i32, ptr]
     lib.flash_attention_fwd.restype = i32
     # (q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH, D, Dv, scale, causal,
     #  is_bf16, key tile, grid x, y, z, stream): the tile and grid of `bwd_plan`

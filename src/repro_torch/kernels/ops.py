@@ -5,22 +5,30 @@ model layer calls these under ``impl="kernel"``.
 Under a device mesh the kernels take local shards (``local_map``):
 
 * ``flash_attention_op`` runs its forward and backward (K1, K2a/K2b) on
-  each rank's shard, batch over "data" and heads over "model"
+  each rank's shard, batch over ("pod", "data") (the rows role of
+  ``partition.role_placements``) and heads over "model"
   (``attention_on_local_shards``);
 * ``flash_decode_op`` (K3) reads a cache in ``cache_shardings``'
-  placements where it lies (``decode_on_local_shards``): batch over "data",
-  KV heads over "model" (each rank's query heads with them), or the
+  placements where it lies (``decode_on_local_shards``): batch over ("pod",
+  "data"), KV heads over "model" (each rank's query heads with them), or the
   sequence over a mesh dim, where each rank takes K3's partial entry over
   its rows and ``combine_partials`` merges the ranks' results, as XLA's
   psums do for the reference;
-* ``fused_ffn_op`` (K4) runs on each rank's rows and its slice of "ff",
-  the weights' "embed" gathered (FSDP), and all-reduces the partial sums
-  over "model" (``ffn_on_local_shards``: Megatron's row-parallel output);
-* ``ssd_scan_op`` (K5) runs on each rank's batch rows, A replicated
-  (``ssd_scan_on_local_shards``), forward only as off a mesh.
+* ``fused_ffn_op`` (K4) runs on each rank's rows (over "pod" and "data")
+  and its slice of "ff", the weights' "embed" gathered (FSDP), and
+  all-reduces the partial sums over "model" (``ffn_on_local_shards``:
+  Megatron's row-parallel output);
+* ``ssd_scan_op`` (K5) runs on each rank's batch rows (over "pod" and
+  "data"), A replicated (``ssd_scan_on_local_shards``), forward only as
+  off a mesh.
 
 On a CUDA shard each op launches its kernel or raises; nothing falls back to
-a plain version.
+a plain version. On ``meta`` tensors (``launch/dryrun``'s abstract step)
+K1 and K2 are the custom ops ``repro_torch::flash_attention_fwd`` and
+``repro_torch::flash_attention_bwd``, whose fake implementations allocate
+what the kernels write and no more (out and lse; dq, dk and dv), so that the
+dry-run's peak memory is the kernels', not the plain versions' (S x S)
+scores; ``launch/dryrun`` gives them the plain versions' FLOPs.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (check_inputs as _check_attention,
                                                  flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
+from repro_torch.kernels.flash_attention_bwd import (attention_delta, flash_attention_bwd,
                                                      flash_attention_bwd_plain)
 from repro_torch.kernels.flash_decode import (cdiv, check_inputs as _check_decode,
                                               flash_decode, flash_decode_partial,
@@ -43,12 +51,47 @@ from repro_torch.kernels.fused_ffn import (check_inputs as _check_ffn, fused_ffn
                                            fused_ffn_plain)
 from repro_torch.kernels.ssd_scan import (check_inputs as _check_ssd, ssd_scan,
                                           ssd_scan_plain)
-from repro_torch.sharding.partition import mesh_sizes, role_placements
+from repro_torch.sharding.partition import mesh_sizes, role_placements, rows_split
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def attention_fwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       scale: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 on ``meta`` tensors, as the kernel runs: it reads q, k and v and
+    writes out (B,Sq,H,Dv) and lse (B,Sq,H) fp32, nothing else. Meta only
+    (its fake implementation): a real tensor takes the kernel or the plain
+    version."""
+    raise NotImplementedError("repro_torch::flash_attention_fwd runs on meta tensors only")
+
+
+@attention_fwd_meta.register_fake
+def _(q, k, v, causal, scale):
+    _check_attention(q, k, v, causal)
+    return (q.new_empty((*q.shape[:3], v.shape[3])),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def attention_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+                       lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                       scale: float | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2a and K2b on ``meta`` tensors, as the kernels run: they read q, k,
+    v, dout, lse and delta (``attention_delta``) and write dq, dk and dv,
+    nothing else. Meta only, as ``attention_fwd_meta``."""
+    raise NotImplementedError("repro_torch::flash_attention_bwd runs on meta tensors only")
+
+
+@attention_bwd_meta.register_fake
+def _(q, k, v, dout, lse, delta, causal, scale):
+    _check_attention(q, k, v, causal)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its gradient: K1 forward, K2a/K2b backward on the
-    card; the plain forward and backward for CPU tensors. The forward saves
+    card; the plain forward and backward for CPU tensors; on ``meta``
+    tensors the custom ops that allocate what the kernels write
+    (``attention_fwd_meta``, ``attention_bwd_meta``). The forward saves
     ``(q, k, v, out, lse)``, so the backward recomputes P from ``lse`` and
     never reruns the forward."""
 
@@ -59,6 +102,8 @@ class FlashAttentionFn(torch.autograd.Function):
             # kernels read contiguous rows
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             out, lse = flash_attention(q, k, v, causal=causal, scale=scale)
+        elif q.is_meta:
+            out, lse = attention_fwd_meta(q, k, v, causal, scale)
         else:
             _check_attention(q, k, v, causal)
             out, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale)
@@ -70,6 +115,10 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()                     # (B,Sq,H,Dv), as out
+        if q.is_meta:
+            dq, dk, dv = attention_bwd_meta(q, k, v, dout, lse, attention_delta(out, dout),
+                                            ctx.causal, ctx.scale)
+            return dq, dk, dv, None, None
         bwd = flash_attention_bwd if q.is_cuda else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
@@ -103,8 +152,9 @@ def _local_kv_heads(h: int, kvh: int, local_h: int, rank: int) -> slice | torch.
 
 def attention_on_local_shards(fn, q, k, v):
     """``fn(q, k, v)`` (an attention on plain (B,S,H,D) tensors) on ``DTensor``
-    inputs in the reference's attention layout: batch over "data", heads
-    over "model", the full sequence, each input redistributed to it. Where
+    inputs in the reference's attention layout: batch over ("pod", "data")
+    where it divides them (``partition.rows_split``), heads over "model",
+    the full sequence, each input redistributed to it. Where
     the KV heads do not divide "model" they stay replicated while the query
     heads are sharded, and each rank reads the KV heads of its own query
     heads: their gradients are partial sums over "model". Returns a
@@ -112,12 +162,13 @@ def attention_on_local_shards(fn, q, k, v):
     mesh = q.device_mesh
     sizes = mesh_sizes(mesh)
     b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
-    batch = Shard(0) if "data" in sizes and b % sizes["data"] == 0 else None
+    batch = Shard(0) if rows_split(mesh, b) else None
     heads = "model" in sizes and h % sizes["model"] == 0
     kv_heads = heads and kvh % sizes["model"] == 0
-    q_layout = role_placements(mesh, batch, Shard(2) if heads else None)
-    kv_layout = role_placements(mesh, batch, Shard(2) if kv_heads else None)
-    kv_grad = kv_layout if kv_heads or not heads else role_placements(mesh, batch, Partial())
+    q_layout = role_placements(mesh, model=Shard(2) if heads else None, rows=batch)
+    kv_layout = role_placements(mesh, model=Shard(2) if kv_heads else None, rows=batch)
+    kv_grad = (kv_layout if kv_heads or not heads
+               else role_placements(mesh, model=Partial(), rows=batch))
     rank = mesh.get_local_rank("model") if heads and not kv_heads else 0
 
     def local(q_, k_, v_):
@@ -221,7 +272,8 @@ def decode_on_local_shards(q, k, v, kv_len, scale=None, whole=None, partial=None
     """``flash_decode_op`` on ``DTensor`` q (B,H,D) and a cache k/v (B,S,KVH,D)
     in ``cache_shardings``' placements, read where it lies (no gather):
     q is redistributed to the cache's layout (``cache_layout``), and each
-    rank runs K3 on its batch rows and KV heads. Where the sequence is
+    rank runs K3 on its batch rows (over "pod" and "data", as the cache
+    lies) and KV heads. Where the sequence is
     sharded, each rank runs K3's partial entry over its rows' share of
     ``kv_len`` (``shard_kv_len``, 0 for a shard past it) and the ranks'
     results are merged over that mesh dim (``combine_partials``). Returns
@@ -267,17 +319,16 @@ def ssd_scan_op(x, dt, A, b_, c_):
 
 def ssd_scan_on_local_shards(x, dt, A, b_, c_):
     """``ssd_scan_op`` on ``DTensor``s: x, dt, b_ and c_ with their batch
-    rows over "data" (where B divides it, else replicated) and the whole
-    sequence, A replicated, each redistributed to that layout. The scan runs
-    along the sequence and mixes no rows, so each rank runs K5 on its rows
-    alone; y and the final state come back with their rows over "data"."""
+    rows over ("pod", "data") (where B divides them, else replicated:
+    ``partition.rows_split``) and the whole sequence, A replicated, each
+    redistributed to that layout. The scan runs along the sequence and mixes
+    no rows, so each rank runs K5 on its rows alone; y and the final state
+    come back with their rows so split."""
     if not all(isinstance(t, DTensor) for t in (x, dt, A, b_, c_)):
         raise NotImplementedError("ssd_scan on a mesh takes x, dt, A, b_ and c_ as DTensors "
                                   "on one mesh")
     mesh = x.device_mesh
-    sizes = mesh_sizes(mesh)
-    rows = role_placements(mesh, Shard(0) if "data" in sizes and x.shape[0] % sizes["data"] == 0
-                           else None)
+    rows = role_placements(mesh, rows=Shard(0) if rows_split(mesh, x.shape[0]) else None)
     return local_map(ssd_scan_op, out_placements=(rows, rows),
                      in_placements=(rows, rows, role_placements(mesh), rows, rows),
                      device_mesh=mesh, redistribute_inputs=True)(x, dt, A, b_, c_)
@@ -297,8 +348,8 @@ def fused_ffn_op(x, w_gate, w_up, w_down):
 
 
 def ffn_on_local_shards(x, w_gate, w_up, w_down):
-    """``fused_ffn_op`` on ``DTensor``s, Megatron's MLP: x's rows over "data"
-    (where they divide it), w_gate/w_up with "ff" over "model" and their
+    """``fused_ffn_op`` on ``DTensor``s, Megatron's MLP: x's rows over
+    ("pod", "data") (where they divide them), w_gate/w_up with "ff" over "model" and their
     "embed" dim gathered over "data" (FSDP), w_down the same with the dims
     swapped. Each rank runs K4 on its rows and its F-slice: SwiGLU is a sum
     over F, so its result is a partial sum over "model", all-reduced into
@@ -310,16 +361,17 @@ def ffn_on_local_shards(x, w_gate, w_up, w_down):
                                   "DTensors on one mesh")
     mesh = x.device_mesh
     sizes = mesh_sizes(mesh)
-    rows = Shard(0) if "data" in sizes and x.shape[0] % sizes["data"] == 0 else None
+    rows = Shard(0) if rows_split(mesh, x.shape[0]) else None
     split = "model" in sizes and w_gate.shape[1] % sizes["model"] == 0
-    x_layout = role_placements(mesh, rows)
+    x_layout = role_placements(mesh, rows=rows)
     up = role_placements(mesh, None, Shard(1) if split else None)
     down = role_placements(mesh, None, Shard(0) if split else None)
 
     def local(x_, g_, u_, d_):
         return fused_ffn_op(x_, g_.contiguous(), u_.contiguous(), d_.contiguous())
 
-    y = local_map(local, out_placements=role_placements(mesh, rows, Partial() if split else None),
+    y = local_map(local, out_placements=role_placements(mesh, model=Partial() if split else None,
+                                                        rows=rows),
                   in_placements=(x_layout, up, up, down), device_mesh=mesh,
                   redistribute_inputs=True)(x, w_gate, w_up, w_down)
     return y.redistribute(mesh, x_layout)

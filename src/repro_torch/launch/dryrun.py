@@ -39,9 +39,11 @@ and the work of a replicated compute (the loss, heads that do not divide
 
 * ``flops_per_device``: rank 0's local ops' FLOPs, by
   ``torch.utils.flop_counter``'s formulas. The remat recompute is in it,
-  and so is the full score square of the attention: on ``meta`` the ops
-  take the kernels' plain versions (``kernels.ops``), which compute every
-  (query, key) pair, causal or not, and the plain SSD scan's products.
+  and so is the full score square of the attention, by choice: on ``meta``
+  K1 and K2 are the custom ops of ``kernels.ops`` (``attention_fwd_meta``,
+  ``attention_bwd_meta``), counted here at the FLOPs of the plain versions'
+  products (``attention_fwd_flops``, ``attention_bwd_flops``), every
+  (query, key) pair, causal or not; and the plain SSD scan's products.
 * ``bytes_per_device``: the bytes of rank 0's local ops' tensor inputs and
   outputs (view ops excluded, the collectives' buffers included): eager and
   unfused, the counterpart of XLA's "bytes accessed".
@@ -50,7 +52,9 @@ and the work of a replicated compute (the loss, heads that do not divide
 * ``temp_bytes_per_device``: the peak of the live storage bytes rank 0's
   local ops make (every output's storage registered once and released by
   ``weakref.finalize`` when Python drops it; a ``meta`` tensor's
-  ``untyped_storage()`` is one object shared by its views);
+  ``untyped_storage()`` is one object shared by its views). K1 and K2 count
+  as the kernels run: their inputs, their outputs and lse (K2 also dout and
+  delta), no (S x S) tensor;
   ``peak_memory_per_device`` is the argument bytes plus it, and ``fits``
   holds it against one H100's 80 GB.
 * ``collective_bytes_per_device`` and ``collectives["by_kind"]``: the
@@ -89,13 +93,14 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import flop_registry
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 import repro_torch.configs as configs
 from repro_torch.configs.base import cell_is_runnable
 from repro_torch.core import msm
 from repro_torch.core.hw import H100_SXM
 from repro_torch.core.roofline import RooflineReport, model_flops_lm, useful_flops_cell
+from repro_torch.kernels import ops  # noqa: F401  (defines the K1/K2 custom ops counted below)
 from repro_torch.launch.specs import (StandInMesh, input_specs, on_mesh, optim_config_for,
                                       shape_of)
 from repro_torch.serve.step import make_decode_step, make_prefill_step
@@ -191,6 +196,23 @@ def _tensors(tree) -> list:
 
 def _local(t: torch.Tensor) -> torch.Tensor:
     return t._local_tensor if isinstance(t, DTensor) else t
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def attention_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """K1's FLOPs as the plain forward's products count them: Q K^T over D
+    and P V over Dv for every (query, key) pair, 2 B H Sq Skv (D + Dv)."""
+    b, sq, h, d = q_shape
+    return 2 * b * h * sq * k_shape[1] * (d + v_shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def attention_bwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """K2's FLOPs as the plain backward's products count them: dq's
+    recompute of S and dP and its dS K, dk/dv's recompute of S and dP and
+    their dS^T Q and P^T dO, 2 B H Sq Skv (4 D + 3 Dv)."""
+    b, sq, h, d = q_shape
+    return 2 * b * h * sq * k_shape[1] * (4 * d + 3 * v_shape[3])
 
 
 _PLAIN = (torch.Tensor, torch.nn.Parameter)

@@ -44,7 +44,10 @@ from repro_torch.train.optim import state_shardings
 VLM_PATCHES = 256
 WHISPER_ENC_LEN = 1500
 # the policies' attention_impl (the reference's names) -> the port's IMPLS:
-# the reference's chunked and Pallas paths are the port's kernel path
+# the reference's chunked and Pallas paths are the port's kernel path; on
+# meta tensors K1 and K2 are counted as the kernels run (``kernels.ops``'s
+# custom ops: O(S) memory, as the reference's chunked attention), their
+# FLOPs those of the plain versions' every (query, key) pair (``launch/dryrun``)
 IMPL_OF = {"naive": "naive", "chunked": "kernel", "pallas": "kernel"}
 
 

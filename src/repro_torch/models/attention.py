@@ -260,7 +260,8 @@ def cross_decode(params, cfg: ModelConfig, x, cross_k, cross_v, impl="kernel"):
     b, enc_len = x.shape[0], cross_k.shape[1]
     if enc_len == 0:
         return torch.zeros_like(x)
-    q = _query_for((x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim), cross_k)
+    q = whole_heads(x @ params["wq"], cfg.n_heads).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    q = _query_for(q, cross_k)
     if impl == "kernel":
         out = kops.flash_decode_op(q[:, 0], cross_k, cross_v, enc_len)
     elif isinstance(cross_k, DTensor):

@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.base import P, Specs
-from repro_torch.sharding.partition import mesh_sizes, replicate_like, role_placements
+from repro_torch.sharding.partition import replicate_like, role_placements, rows_split
 
 
 # --------------------------------------------------------------------------------
@@ -120,19 +120,19 @@ def _rebuild(like, leaves):
 def on_rows(fn, weights, *rows, out_rows=True, n_out=1):
     """``fn(weights, *rows)`` on each rank's rows of ``DTensor`` inputs:
     ``weights`` (one tensor, or a nested dict of them) replicated, each
-    (B, ...) ``rows`` tensor split over "data" by its batch where that
-    divides (replicated otherwise) and replicated over "model". Each
-    weight's gradient is a partial sum over "data" where the rows are
-    split. ``fn`` returns ``n_out`` tensors (one, or a tuple): rows too
-    where ``out_rows``, else sums over the rows (partial over "data")."""
+    (B, ...) ``rows`` tensor split by its batch over ("pod", "data") where
+    that divides (``partition.rows_split``; replicated otherwise) and
+    replicated over "model". Each weight's gradient is a partial sum over
+    those dims where the rows are split. ``fn`` returns ``n_out`` tensors
+    (one, or a tuple): rows too where ``out_rows``, else sums over the rows
+    (partial over "pod" and "data")."""
     flat = _leaves(weights)
     n = len(flat)
     mesh = flat[0].device_mesh
-    sizes = mesh_sizes(mesh)
-    split = "data" in sizes and rows[0].shape[0] % sizes["data"] == 0
+    split = rows_split(mesh, rows[0].shape[0])
 
     def layout(kind):
-        return role_placements(mesh, kind if split else None)
+        return role_placements(mesh, rows=kind if split else None)
 
     def local(*args):
         return fn(_rebuild(weights, args[:n]), *args[n:])

@@ -29,8 +29,8 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import P, Specs
 from repro_torch.models.layers import ffn, ffn_specs
-from repro_torch.sharding.partition import (fit, mesh_sizes, placements, replicate_like,
-                                            role_placements)
+from repro_torch.sharding.partition import (fit, placements, replicate_like, role_placements,
+                                            rows_split)
 
 
 def moe_specs(cfg: ModelConfig) -> Specs:
@@ -158,8 +158,9 @@ def _moe_on_mesh(params, cfg: ModelConfig, x, cap: int):
     """``moe_ffn``'s routed experts on a ``DTensor`` ``x`` (B, S, d), in the
     reference's placements: the (E, cap, d) grid, the expert hidden and
     output with experts over "model" and capacity over "data", the combined
-    rows batch over "data" (each placement fitted to the mesh, as the
-    reference's ``constrain``). The result is the unsharded function's:
+    rows batch over ("pod", "data") (each placement fitted to the mesh, as
+    the reference's ``constrain``; the rows role of
+    ``partition.role_placements``). The result is the unsharded function's:
     every rank routes its own rows, the decisions (T x k expert ids) are
     gathered, and every rank packs all T tokens against the one capacity,
     as one device does, then takes its block of the grid. The ops run on
@@ -169,10 +170,9 @@ def _moe_on_mesh(params, cfg: ModelConfig, x, cap: int):
     mesh = x.device_mesh
     b, s, d = x.shape
     t, k = b * s, cfg.top_k
-    sizes = mesh_sizes(mesh)
-    split = "data" in sizes and b % sizes["data"] == 0
-    rows = role_placements(mesh, Shard(0) if split else None)
-    rows_sum = role_placements(mesh, Partial() if split else None)
+    split = rows_split(mesh, b)
+    rows = role_placements(mesh, rows=Shard(0) if split else None)
+    rows_sum = role_placements(mesh, rows=Partial() if split else None)
     whole = role_placements(mesh)
     grid = list(placements(fit((cfg.n_experts, cap, d), ("model", "data", None), mesh), mesh))
     # a rank's share of a sum over the grid's blocks: partial where the grid

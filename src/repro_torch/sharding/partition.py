@@ -16,8 +16,9 @@ of one tensor want the same mesh axis the first in the priority order
 below wins. A spec is what the reference's ``PartitionSpec`` holds: one
 entry per tensor dim, a mesh-axis name, a tuple of names or ``None``.
 ``placements`` turns it into ``DTensor`` placements, one per mesh dim;
-``role_placements`` builds them from the roles a tensor takes on "data"
-and "model", for the ops that run on local shards.
+``role_placements`` builds them from the roles a tensor takes on "data",
+on "model" and on the batch's rows (every dim of ``batch_axes``: "pod" and
+"data"), for the ops that run on local shards.
 
 The rules read only the mesh's dim names and sizes (``mesh_dim_names``,
 ``shape``), so they are pure functions of shapes and mesh sizes.
@@ -82,14 +83,32 @@ def resolve_spec(shape: tuple[int, ...], axes: tuple[str | None, ...], mesh,
     return tuple(entries)
 
 
-def role_placements(mesh, data=None, model=None) -> list:
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh dims a batch's rows lie over (``batch_spec``): "pod" and
+    "data", those of them ``mesh`` has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def rows_split(mesh, n: int) -> bool:
+    """Whether ``n`` batch rows split over every dim of ``batch_axes``, as
+    ``fit`` (and so ``place_batch``) splits them: where their sizes'
+    product divides ``n``, and over none of them where it does not."""
+    axes = batch_axes(mesh)
+    return bool(axes) and n % _flat(mesh_sizes(mesh), axes) == 0
+
+
+def role_placements(mesh, data=None, model=None, rows=None) -> list:
     """One placement per dim of ``mesh`` from the roles a tensor takes
-    there: ``data`` on the "data" dim (``Shard(0)`` for a batch split over
-    it, ``Partial()`` for a gradient summed over it), ``model`` on the
-    "model" dim, ``Replicate()`` where a role is None and on any other dim.
-    A list, as ``local_map`` reads a tuple as one placement list per
-    output."""
+    there: ``data`` on the "data" dim alone (the MoE grid's capacity
+    blocks, FSDP's gradient sums), ``model`` on the "model" dim, ``rows`` on
+    every dim of ``batch_axes`` ("pod" and "data": ``Shard(0)`` for a batch
+    split over them, ``Partial()`` for a gradient summed over its rows;
+    it takes "data" from ``data``), ``Replicate()`` where a role is None and
+    on any other dim. A list, as ``local_map`` reads a tuple as one
+    placement list per output."""
     roles = {"data": data, "model": model}
+    if rows is not None:
+        roles.update(dict.fromkeys(batch_axes(mesh), rows))
     return [Replicate() if roles.get(name) is None else roles[name]
             for name in mesh.mesh_dim_names]
 
@@ -130,10 +149,10 @@ def param_shardings(axes_tree, shapes_tree, mesh, fsdp: bool = True):
 def batch_spec(mesh, seq_sharded: bool = False) -> Spec:
     """Token batches: batch over (pod, data); optionally sequence over data
     (context/sequence parallelism for the gb=1 long-context cells)."""
-    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    axes = batch_axes(mesh)
     if seq_sharded:
         return (None, ("data",))
-    return (batch_axes if len(batch_axes) > 1 else batch_axes[0],)
+    return (axes if len(axes) > 1 else axes[0],)
 
 
 def place_batch(t, mesh) -> DTensor:
@@ -160,9 +179,9 @@ def cache_shardings(cache_tree, mesh, shard_seq: bool = False):
     mesh dim, where XLA turns the reference's reductions into psums);
     ``launch/specs`` places the dry-run's decode caches with it."""
     dims = mesh_sizes(mesh)
-    batch_axes = tuple(a for a in ("pod", "data") if a in dims)
-    bspec = batch_axes if len(batch_axes) > 1 else (batch_axes[0] if batch_axes else None)
-    nbatch = max(_flat(dims, batch_axes), 1)
+    axes = batch_axes(mesh)
+    bspec = axes if len(axes) > 1 else (axes[0] if axes else None)
+    nbatch = max(_flat(dims, axes), 1)
 
     def spec_for(name: str, arr) -> Spec:
         shape = arr.shape

@@ -584,6 +584,39 @@ def test_collective_bytes_by_hand(fake_runs):
         L * 2 * g * 4 * (2 * rows * h + rows * h * hd), rel=1e-12)
 
 
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_the_attention_peak_grows_with_s_not_s_squared(kind):
+    """tinyllama smoke's step on plain ``meta`` tensors (``count_step``, no
+    process group), at S and 2S: K1 and K2 count as the kernels run (their
+    inputs, outputs and lse; no (S x S) scores), so the peak of temporaries
+    at 2S is at most twice the peak at S and below one layer's fp32 score
+    square at 2S. Prefill's FLOPs equal, exactly, ``FlopCounterMode``'s count
+    of the same step on CPU tensors, which takes the plain versions: the
+    FLOPs keep counting every (query, key) pair."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.serve.step import make_prefill_step
+
+    cfg = tconfigs.get(SMOKE)
+    one, b, peaks = StandInMesh((1, 1)), 4, []
+    policy = msm.recommend(f"{kind}_32k" if kind == "prefill" else "train_4k", cfg.n_params())
+    for s in (512, 1024):
+        shape = ShapeConfig(f"{kind}_{s}", s, b, kind)
+        _, model, args, _ = input_specs(cfg, shape, one, policy)
+        mb = dryrun._clamp_microbatches(policy.microbatches, b, one) if kind == "train" else 1
+        counts = dryrun.count_step(dryrun.build_step(kind, model, policy, shape, mb), args)
+        peaks.append(counts.temp_peak)
+        if kind == "prefill":
+            cpu = LanguageModel(cfg, impl="kernel").init(torch.Generator().manual_seed(0),
+                                                         device="cpu")
+            batch = {k: torch.zeros_like(v, device="cpu") for k, v in args[1].items()}
+            with FlopCounterMode(display=False) as plain, torch.no_grad():
+                make_prefill_step(cpu)(batch)
+            assert counts.flops == plain.get_total_flops(), s
+    square = b * cfg.n_heads * 1024 ** 2 * 4
+    assert peaks[1] <= 2 * peaks[0] * (1 + 1e-3) and peaks[1] < square, (peaks, square)
+
+
 def test_dense_flops_by_closed_form(fake_runs):
     """tinyllama smoke's training step on one device: per microbatch of b
     rows and T = b S tokens, each layer's products P = 2T(dHh + 2dKh + Hhd +
@@ -615,23 +648,18 @@ def test_a_pod_mesh_runs_each_cell(fake_runs):
     "pod" and the batch splits over it, so its argument bytes are the (1, 1)
     cell's less half the batch's.
 
-    Its collectives are pinned at what the port sends today, which is not
-    right (ROADMAP queue 3, open: the ops that run on local shards name no
-    "pod", so over it they gather the batch). A batch split over ("pod",
-    "data") needs the gradients' all-reduce alone, mb x 2(n-1)/n x the
-    parameters' bytes; a repair, or a fault that grows, changes these
-    numbers. With n = 2, mb = 4 microbatches of one row a rank (S = 320, d =
-    64, X = S d bf16 bytes of a row of the stream), over "pod":
+    Every op that runs on local shards takes the batch's rows over "pod"
+    and "data" (the rows role of ``partition.role_placements``), so each pod
+    computes its own half of the batch: rank 0's FLOPs are the (1, 1) cell's
+    over 2, and its collectives are those of data parallelism alone. With n =
+    2 and mb = 4 microbatches of one row a rank, over "pod":
 
-    * all-gathered, each its local row ((n-1) x its input): a microbatch's
-      tokens for the embedding and labels for the loss (int32), the loss's
-      stream rows, three rows of the backward's gradients, q (H hd = d) in
-      the forward and the recompute of each layer, and k and v (2 KV heads
-      of 4) likewise; and the split batch's three int32 keys once;
-    * all-reduced, once a microbatch: every gradient but the embedding's,
-      the LM head's (the whole batch's loss runs on each pod) and one of
-      the attention's two 64 x 64 projections' (its stacked layers), which
-      each pod already holds whole."""
+    * all-reduced, once a microbatch (2(n-1)/n = 1 x the input): every
+      gradient, mb x the parameters' bytes, and the loss's two fp32 sums;
+    * all-gathered ((n-1) x the input): the split batch's three int32 keys,
+      once (the microbatch split gathers dim 0 first: mb = 4 does not divide
+      the batch's 2 shards of 4 rows each into whole microbatches);
+    * nothing reduce-scattered or sent all-to-all."""
     pod, one = fake_runs["train|(2, 1, 1)"], fake_runs[f"{SMOKE}|train_4k|(1, 1)"]
     assert pod["status"] == "ok" and pod["chips"] == 2 and pod["mesh"] == "2x1x1"
     shape = SMALL["train_4k"]
@@ -639,22 +667,18 @@ def test_a_pod_mesh_runs_each_cell(fake_runs):
     assert pod["argument_bytes_per_device"] == one["argument_bytes_per_device"] - batch / 2
 
     cfg = tconfigs.get(SMOKE)
-    L, s_, d = cfg.n_layers, shape.seq_len, cfg.d_model
-    kv_share = cfg.n_kv_heads / cfg.n_heads
     full = {k: t.numel() * 2 for k, t in flat(abstract_params(
         LanguageModel(cfg).specs())).items()}
     mb = 4
-    assert pod["microbatches"] == mb
-    x = s_ * d * 2
-    gathered = mb * (2 * s_ * 4 + x + 3 * x + 2 * L * x + 2 * 2 * L * kv_share * x) + batch / 2
-    reduced = mb * (sum(full.values()) - full["emb/embedding"] - full["emb/lm_head"]
-                    - full["layers/attn/wo"])
-    kinds = pod["collectives"]["by_kind"]
-    assert kinds["all-gather"] == pytest.approx(gathered, rel=1e-12)
-    assert kinds["all-reduce"] == pytest.approx(reduced, rel=1e-12)
-    assert kinds["reduce-scatter"] == kinds["all-to-all"] == 0
+    assert pod["microbatches"] == one["microbatches"] == mb
     right = mb * sum(full.values())
-    assert pod["collective_bytes_per_device"] != right
+    kinds, calls = pod["collectives"]["by_kind"], pod["collectives"]["calls"]
+    assert kinds["all-reduce"] == pytest.approx(right + mb * 2 * 4, rel=1e-12)
+    assert calls["all-reduce"] == mb * (len(full) + 2)
+    assert kinds["all-gather"] == pytest.approx(batch / 2, rel=1e-12)
+    assert calls["all-gather"] == 3
+    assert kinds["reduce-scatter"] == kinds["all-to-all"] == 0
+    assert pod["flops_per_device"] * 2 == one["flops_per_device"]
 
 
 def test_fake_mesh_refuses_an_existing_group(fake_runs):

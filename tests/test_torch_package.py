@@ -48,7 +48,9 @@ def test_every_module_is_checked():
                    "ft/elastic.py", "sharding/__init__.py",
                    "sharding/partition.py", "launch/mesh.py", "core/__init__.py",
                    "core/hw.py", "core/roofline.py", "core/msm.py", "launch/specs.py",
-                   "launch/dryrun.py"):
+                   "launch/dryrun.py", "core/trace.py", "check/__init__.py",
+                   "check/__main__.py", "check/facts.py", "check/rules.py", "check/streams.py",
+                   "check/catalog.py", "check/ptxas.py", "check/cli.py"):
         assert needed in names
     for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
                "ssd_scan.cu", "fused_ffn.cu", "mma_tile.cuh"):
