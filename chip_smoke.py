@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # one NVIDIA Hopper card, nvcc, no network
 
-Phases, one JSON object a line:
+Phases, one JSON object a line (each with `at_s`, the script's seconds
+when the line was printed):
   env      the card (name, power limit), torch / CUDA / nvcc versions
   build    builds the CUDA kernels from src/repro_torch/csrc and loads them,
            with each kernel's registers and spill bytes as ptxas reports them
@@ -16,6 +17,24 @@ Phases, one JSON object a line:
            the kernels' launch plans, K3's cluster sizes as `launch_plan`
            picks them on this card, R5 reading the build's ptxas report:
            cases, launch plans, findings (any unwaived one fails) and seconds
+  sweep    the analytic stack (core.stackdist, core.cachesim, core.sweep)
+           over every scenario of the port's registry, kernel.* included,
+           at full size: SweepEngine(registry.scenarios(), copa.TABLE_V) with
+           device="cuda" against device="cpu" (the NumPy scans), every row's
+           DRAM/L3/UHB bytes, time, speedup and segments; each side's host
+           seconds cold and warm; every stream's reuse distances from the
+           card's batch pass equal to the host's to the bit (the longest
+           MLPerf stream among them); StreamBatch.traffic_matrices over the
+           whole registry at every capacity Table V and the baseline need,
+           fills to the bit and writebacks at rtol 1e-12; serve_cost_grids
+           for resnet (and gnmt with a KV axis) on both sides; the two scans
+           on awkward rows (one touch, pads only, a length that is not a
+           power of two, a seeded stream with heavy reuse, the longest
+           stream alone); each scan's device ms (CUDA events) beside its
+           NumPy ms on the host, the peak device memory, and the model's
+           per-config geomean speedups over mlperf.infer.large and
+           mlperf.train.large (the paper's GPU-N configurations: model
+           output, not a card measurement); the phase's seconds
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
            training shape and at MLA's (deepseek-v2-236b's heads, head dims
            (192, 128)), with its plan
@@ -86,10 +105,12 @@ Phases, one JSON object a line:
   serve_hybrid  zamba2-1.2b at full width and depth (38 Mamba-2 blocks, 6
            calls of the shared attention + MLP block), bf16, seeded random
            weights, impl="kernel" with fused_ffn: the prefill step on 4 x 512
-           prompts (K5 38 launches, all on the mma route, K1 6, K4 6, all on
-           the tiled route) and
-           `generate` for 16 greedy steps (K3 and K4 6 x 527 each, K4 on the
-           row-tile route), against impl="naive" without
+           prompts and on their first 64 tokens (each K5 38 launches, all on
+           the mma route, and K4 6, all on the tiled route; K1 6 at 512, none
+           at 64: the reference's naive attention up to 256) and `generate`
+           for 16 greedy steps after the 64-token prompt (K3 and K4 6 x 79
+           each, K4 on the row-tile route), the engine held against the
+           4 x 64 prefill step, against impl="naive" without
            fused_ffn on the same weights; layer 0's SSM state after 512
            tokens through the kernel scan against 512 decode steps; times
            (host clock, CUDA-graph replay) and a torch.profiler breakdown of
@@ -119,26 +140,28 @@ Phases, one JSON object a line:
            row's model FLOPs
   serve_vlm  internvl2-26b at full width and depth (48 layers, d 6144, GQA at
            H=48 KVH=8 D=128), bf16, seeded random weights: the prefill step on
-           4 x 512 prompts with 256 seeded patch embeddings (K1 48) and without
-           them, and `generate` for 16 greedy steps (K3 48 x 527), against
+           4 x 512 prompts with 256 seeded patch embeddings (K1 48), without
+           them (K1 48), and on their first 64 tokens (no K1), and `generate` for 16 greedy
+           steps after the 64-token prompt (K3 48 x 79), against
            impl="naive" on the same weights; the engine (token ids only, as
-           the reference's) against the prefill step without patches
+           the reference's) against the 4 x 64 prefill step
   serve_moe  qwen3-moe-235b-a22b at full width (d 4096, 128 experts, top-8,
            GQA at H=64 KVH=4 D=128) and 6 of its 94 layers, bf16: the prefill
-           step (K1 6) and `generate` for 16 steps (K3 6 x 527), against
+           step on 4 x 512 (K1 6) and on their first 64 tokens (no K1) and
+           `generate` for 16 steps after the 64-token prompt (K3 6 x 79), against
            impl="naive" sending each token to the experts the kernel path
            chose (the naive path's own picks recorded: the share of routing
            decisions that agree), the (token, expert) assignments capacity
-           drops in the prefill; the bf16 logits held kernel against naive,
-           and the engine against a prefill step that drops nothing and
-           routes as the engine's prompt steps did; then 2 layers in fp32,
+           drops in the 4 x 512 prefill; the bf16 logits held kernel against
+           naive, and the engine against a 4 x 64 prefill step that drops
+           nothing and routes as the engine's prompt steps did; then 2 layers in fp32,
            each path routing for itself, kernel against naive logits held
            at 1e-4, routing identical.
   serve_mla  deepseek-v2-236b at full width (d 5120, MLA: 128 heads,
            kv_lora 512, q_lora 1536, rope 64, v 128; 160 experts top-6, 2
            shared) and 4 of its 60 layers (the dense-FFN layer + 3 MoE
-           layers), bf16, run by serve_moe's code: the prefill step (K1
-           4, at head dims (192, 128)) and `generate` for 16 steps (the
+           layers), bf16, run by serve_moe's code: the prefill steps (K1
+           4 at 512, at head dims (192, 128)) and `generate` for 16 steps (the
            absorbed decode on the latent cache: no kernel, K3 0); then the
            dense layer + 1 MoE layer in fp32.
            All three rows: device ms (graph replay) and eager ms of the prefill
@@ -186,19 +209,20 @@ Phases, one JSON object a line:
            same checks and numbers as train_audio (K1 12, K2a 6, K2b 6 a
            step), and the naive scan's share of the step: its device time on
            one layer's shape, forward and forward + backward, times 38 layers
-  train_ckpt  tinyllama-1.1b at full size through launch.train's runner
+  train_ckpt  tinyllama-1.1b at full width, cut to 4 of its 22 layers, through
+           launch.train's runner
            (make_runner, as its main builds it: TRAIN_MSM, remat "full",
            impl="kernel", 4 x 1024 batches from the data pipeline). Run A: 4
            steps, no checkpoint. Run B: 4 steps with --ckpt-dir (a directory
            under build/, removed at the end; at least 3 checkpoints of free
            disk required) and --save-every 2, its segment failing once after
            step 3, before that step's save: one restart, resumed from step 2
-           (K1 2 x 22, K2a 22, K2b 22 a step: A 4 steps, B 5). B's resumed
+           (K1 2 x 4, K2a 4, K2b 4 a step: A 4 steps, B 5). B's resumed
            losses, final parameters and optimizer state equal A's to the bit;
            `restore` of step 4 equals B's in-memory state; the restored
-           parameters served (prefill step on 4 x 512, K1 22; `generate` 16
-           steps, K3 22 x 527), the prefill logits equal to the bit to those
-           of A's parameters (K1 22) and close to the naive path's. Reports
+           parameters served (prefill step on 4 x 512, K1 4; `generate` 16
+           steps, K3 4 x 527), the prefill logits equal to the bit to those
+           of A's parameters (K1 4) and close to the naive path's. Reports
            the checkpoint's bytes, each save's hold on the loop
            (wait + snapshot), background write seconds and GB/s, restore
            seconds and GB/s, the doubled last save's cost, free disk before
@@ -311,6 +335,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -340,6 +365,15 @@ LONG_ARCH = "mistral-nemo-12b"   # K3 timed at its heads over a 32k cache: H=32,
 HYBRID_ARCH, HYBRID_GEN_STEPS = "zamba2-1.2b", 16
 VLM_ARCH, MOE_ARCH, FAMILY_GEN_STEPS = "internvl2-26b", "qwen3-moe-235b-a22b", 16
 VLM_PATCHES = 256          # the reference's patch positions for a vlm (launch/specs.py)
+# the engine's prompt in serve_hybrid, serve_vlm, serve_moe and serve_mla:
+# the engine takes a prompt one decode step a token, so a 512-token prompt
+# made these phases host-bound for minutes. The prefill step still runs on
+# BATCH x PROMPT_LEN; the engine is held against a prefill step on its own
+# BATCH x ENGINE_PROMPT prompt (the first ENGINE_PROMPT tokens of the same
+# prompts), which launches no K1: a prefill of 256 positions or fewer takes
+# the naive attention, the reference's shortcut (models.attention.sdpa).
+# serve and train_ckpt keep the engine at PROMPT_LEN.
+ENGINE_PROMPT = 64
 # qwen3-moe-235b-a22b at full width, cut in depth to fit one 80 GB card: 6 of
 # its 94 layers in bf16 (16.2 B parameters), 2 in fp32 (6.2 B)
 MOE_LAYERS, MOE_FP32_LAYERS = 6, 2
@@ -390,16 +424,18 @@ AUDIO_LOGIT_REL_NORM, AUDIO_BLIND_MARGIN = 5e-2, 4
 # are held at 4e-2 against each other, and the kernel path must be no
 # further from the fp32 oracle than the naive path is (within 10 %)
 TRAIN_GRAD_RTOL, TRAIN_LOSS_ATOL, TRAIN_VS_ORACLE = 4e-2, 1e-2, 1.1
-# train_ckpt: launch.train's runner on tinyllama-1.1b at full size, 4 steps,
-# a checkpoint every 2 into a directory inside the checkout (ignored by git,
-# removed at the end); run B's segment fails once right after its third step,
-# before that step's save, so it resumes from step 2. Each checkpoint holds
-# the bf16 parameters and fp32 master weights, mu and nu (15.40 GB); at the
-# doubled last save, steps 2 and 4 and step 4's second copy, not yet renamed
-# into place, are on the disk at once, so 3 checkpoints and CKPT_DISK_MARGIN
-# must be free
+# train_ckpt: launch.train's runner on tinyllama-1.1b at full width, cut to
+# CKPT_LAYERS of its 22 layers, 4 steps, a checkpoint every 2 into a directory
+# inside the checkout (ignored by git, removed at the end); run B's segment
+# fails once right after its third step, before that step's save, so it
+# resumes from step 2. Each checkpoint holds the bf16 parameters and fp32
+# master weights, mu and nu (4.30 GB at 4 layers; 15.40 GB at all 22, whose
+# three writes and two reads held the phase at the disk's rate for minutes);
+# at the doubled last save, steps 2 and 4 and step 4's second copy, not yet
+# renamed into place, are on the disk at once, so 3 checkpoints and
+# CKPT_DISK_MARGIN must be free
 CKPT_DIR = ROOT / "build" / "train_ckpt"
-CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AFTER = 4, 2, 3
+CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_FAIL_AFTER, CKPT_LAYERS = 4, 2, 3, 4
 CKPT_DISK_MARGIN = 2 << 30
 # train_mesh: launch.train's runner on tinyllama-1.1b at full size, without a
 # mesh and through a (1, 1) mesh on the card, MESH_STEPS steps each
@@ -446,7 +482,13 @@ SERVE_MESH_RUNS = ((ARCH, False, BATCH, 64, 16, True), (ARCH, False, 1, 8, 4, Fa
                    (AUDIO_ARCH, False, BATCH, 16, 8, True), (AUDIO_ARCH, False, 1, 8, 4, True))
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -576,6 +618,332 @@ def phase_check(ptxas: dict) -> None:
           "decode_clusters": clusters, "seconds": time.perf_counter() - t0})
     if unwaived:
         raise AssertionError("check: unwaived findings:\n" + "\n".join(unwaived))
+
+
+# --------------------------------------------------------------------------------
+# the analytic stack: its two batched scans on the card against NumPy
+
+SWEEP_WB_RTOL = 1e-12   # writebacks go through log/exp; every other sum is of whole numbers
+
+
+def sweep_close(a: float, b: float, scale: float = 0.0) -> bool:
+    """``a`` and ``b`` equal (NaN and inf included), or within
+    ``SWEEP_WB_RTOL`` of the larger of them and ``scale``."""
+    if a == b or (math.isnan(a) and math.isnan(b)):
+        return True
+    if not (math.isfinite(a) and math.isfinite(b)):
+        return False
+    return abs(a - b) <= SWEEP_WB_RTOL * max(abs(a), abs(b),
+                                             scale if math.isfinite(scale) else 0.0)
+
+
+def same_bits_value(a, b) -> bool:
+    """Equal, NaN to NaN, through a row's segment dicts."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits_value(a[k], b[k]) for k in a)
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (math.isnan(a) and math.isnan(b))
+    return a == b
+
+
+def same_row(a, b) -> bool:
+    return all(same_bits_value(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def sweep_grids_agree(got, want) -> dict:
+    """Every row of the card's grid against the host's: bytes, times and
+    speedups at rtol 1e-12, each segment (a difference of two times) at
+    1e-12 of its row's time. Raises on the first disagreement."""
+    assert len(got.rows) == len(want.rows)
+    worst = 0.0
+    for a, b in zip(got.rows, want.rows):
+        assert (a.trace, a.config, a.n_gpus) == (b.trace, b.config, b.n_gpus)
+        for f in ("dram_bytes", "l3_bytes", "uhb_bytes", "l2_bytes", "time_s",
+                  "per_gpu_time_s", "baseline_time_s", "speedup", "throughput",
+                  "dram_joules", "l3_joules"):
+            x, y = getattr(a, f), getattr(b, f)
+            if not sweep_close(x, y):
+                raise AssertionError(f"sweep: {a.trace} {a.config} {f}: card {x!r}, host {y!r}")
+            if x != y and math.isfinite(y) and y:
+                worst = max(worst, abs(x - y) / abs(y))
+        assert a.segments.keys() == b.segments.keys()
+        for k in a.segments:
+            if not sweep_close(a.segments[k], b.segments[k], abs(b.time_s)):
+                raise AssertionError(f"sweep: {a.trace} {a.config} segment {k}: card "
+                                     f"{a.segments[k]!r}, host {b.segments[k]!r}")
+    return {"rows": len(got.rows), "max_rel_diff": worst,
+            "rows_equal_to_the_bit": sum(same_row(a, b) for a, b in zip(got.rows, want.rows))}
+
+
+def traffic_agree(name: str, got: tuple, want: tuple) -> float:
+    """Fills to the bit, writebacks at ``SWEEP_WB_RTOL``; the writebacks'
+    largest relative difference."""
+    if not np.array_equal(got[0], want[0]):
+        raise AssertionError(f"sweep: {name}: fills differ from the host's")
+    wb, wb_want = got[1], want[1]
+    bad = np.abs(wb - wb_want) > SWEEP_WB_RTOL * np.maximum(np.abs(wb), np.abs(wb_want))
+    if bad.any():
+        raise AssertionError(f"sweep: {name}: {int(bad.sum())} writebacks beyond rtol "
+                             f"{SWEEP_WB_RTOL}")
+    nz = wb_want != 0
+    return float((np.abs(wb - wb_want)[nz] / np.abs(wb_want[nz])).max()) if nz.any() else 0.0
+
+
+def event_ms(fn) -> tuple[object, float, float]:
+    """``fn()``'s result, its device ms between two CUDA events and its host
+    ms (the call ends with a copy to the host)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def sweep_random_trace(rng, n_ops: int, n_tensors: int, name: str, max_bytes: int):
+    """Many touches of few tensors, whole-number sizes of any value."""
+    from repro_torch.core.trace import Trace
+
+    tr = Trace(name)
+    sizes = rng.integers(1, max_bytes, n_tensors)
+    for i in range(n_ops):
+        reads = [(f"t{t}", int(sizes[t])) for t in rng.integers(0, n_tensors,
+                                                                 int(rng.integers(1, 4)))]
+        writes = [(f"t{t}", int(sizes[t])) for t in rng.integers(0, n_tensors,
+                                                                  int(rng.integers(0, 2)))]
+        tr.emit(f"op{i}", 1e6, reads=reads, writes=writes)
+    return tr
+
+
+def sweep_awkward(caps: list) -> dict:
+    """The two scans on the card against NumPy on rows that are easy to get
+    wrong: one touch each, a pad-only row, lengths that are not powers of
+    two, a seeded stream with heavy reuse (the registry's longest streams
+    alone are held in ``phase_sweep``)."""
+    from repro_torch.core import cachesim, stackdist
+    from repro_torch.core.trace import Trace
+
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(37)
+    one = []
+    for i in range(3):
+        tr = Trace(f"one{i}")
+        tr.emit("op", 1.0, reads=[(f"w{i}", 1000 * (i + 1))])
+        one.append(cachesim.build_stream(tr, cyclic=False))
+    cases = {
+        "one_touch": one,
+        "not_pow2": [cachesim.build_stream(sweep_random_trace(rng, n, 5, f"np{n}", 1 << 22))
+                     for n in (333, 37, 1000)],
+        "heavy_reuse": [cachesim.build_stream(sweep_random_trace(rng, 2500, 6, "heavy",
+                                                                 40 << 20))],
+    }
+    out = {}
+    for name, rows in cases.items():
+        dist = cachesim._device_distances({i: (s.tensor_idx, s.sizes)
+                                           for i, s in enumerate(rows)}, cuda)
+        for i, s in enumerate(rows):     # build_stream's distances are the NumPy pass's
+            if not np.array_equal(dist[i], s.dist):
+                raise AssertionError(f"sweep: {name}: distances differ from the host's")
+        extra = [float(np.median([d for s in rows for d in s.dist if np.isfinite(d)] or [1.0]))]
+        c = sorted(set(caps) | set(extra))
+        wb = traffic_agree(name, cachesim.StreamBatch.pad(rows, device=cuda).traffic_matrices(c),
+                           cachesim.StreamBatch.pad(rows).traffic_matrices(c))
+        out[name] = {"rows": len(rows), "touches": [len(s.op_idx) for s in rows],
+                     "wb_max_rel_diff": wb}
+    # pads only: a row of PAD_ID and size 0 beside real rows, and the same
+    # row appended to a traffic block (size 0, +inf distance, nothing recorded)
+    ids = np.full((3, 64), stackdist.PAD_ID, dtype=np.int64)
+    sizes = np.zeros((3, 64))
+    ids[0] = rng.integers(0, 7, 64)
+    sizes[0] = rng.integers(1, 1 << 30, 64)
+    ids[1, :33], sizes[1, :33] = ids[0, :33], sizes[0, :33]
+    got = stackdist._mattson_pass_batch_torch(torch.from_numpy(ids).to(cuda),
+                                              torch.from_numpy(sizes).to(cuda)).cpu().numpy()
+    if not np.array_equal(got, stackdist._mattson_pass_batch(ids, sizes)):
+        raise AssertionError("sweep: pad_only: distances differ from the host's")
+    rows = cases["not_pow2"]
+    batch = cachesim.StreamBatch.pad(rows, device=cuda)
+    block = batch._blocks[0]
+    width = block.sizes.shape[1]
+    block.on_device["sizes"] = torch.cat([block.on_device["sizes"],
+                                          block.on_device["sizes"].new_zeros((1, width))])
+    block.on_device["dist"] = torch.cat([block.on_device["dist"], torch.full(
+        (1, width), math.inf, dtype=torch.float64, device=cuda)])
+    block.on_device["is_write"] = torch.cat([block.on_device["is_write"], torch.zeros(
+        (1, width), dtype=torch.bool, device=cuda)])
+    block.on_device["is_inf"] = torch.cat([block.on_device["is_inf"], torch.ones(
+        (1, width), dtype=torch.bool, device=cuda)])
+    out["pad_only"] = {"wb_max_rel_diff": traffic_agree(
+        "pad_only", batch.traffic_matrices(caps), cachesim.StreamBatch.pad(rows).traffic_matrices(caps))}
+    return out
+
+
+def phase_sweep(card: str) -> dict:
+    """The analytic stack over the whole registry on the card against the
+    host's NumPy scans (see the module docstring's ``sweep``)."""
+    from repro_torch.core import cachesim, copa, sweep
+    from repro_torch.workloads import registry
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    names = registry.scenarios()
+    t0 = time.perf_counter()
+    traces = [registry.scenario(n) for n in names]
+    traces_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    # the engine, cold then warm, on each side; the two scans timed where
+    # the engines call them (the card's by CUDA events, NumPy's by the host
+    # clock) and their results kept
+    scans: dict[str, list] = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            out, dev_ms, host_ms = event_ms(lambda: fn(*args, **kwargs))
+            where = name(*args) if callable(name) else name
+            scans.setdefault(where, []).append((dev_ms, host_ms, out))
+            return out
+        return call
+
+    originals = (cachesim._host_distances, cachesim._device_distances,
+                 cachesim.StreamBatch.traffic_matrices)
+    cachesim._host_distances = timed("mattson_host", originals[0])
+    cachesim._device_distances = timed("mattson_device", originals[1])
+    cachesim.StreamBatch.traffic_matrices = timed(
+        lambda batch, *_: "traffic_" + ("host" if batch.device is None else "device"), originals[2])
+    engines = {}
+    try:
+        for side in ("cuda", "cpu"):
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                grid = sweep.SweepEngine(names, configs=copa.TABLE_V, device=side).run()
+                torch.cuda.synchronize()
+                runs.append((grid, time.perf_counter() - t0))
+            engines[side] = runs
+    finally:
+        (cachesim._host_distances, cachesim._device_distances,
+         cachesim.StreamBatch.traffic_matrices) = originals
+    grids = sweep_grids_agree(engines["cuda"][0][0], engines["cpu"][0][0])
+    for side, runs in engines.items():
+        if not all(same_row(a, b) for a, b in zip(runs[0][0].rows, runs[1][0].rows)):
+            raise AssertionError(f"sweep: the warm {side} grid differs from the cold one")
+    grid = engines["cuda"][0][0]
+
+    # every stream's distances: the engines' own (memoized by side)
+    dev_streams = cachesim.build_streams(traces, device="cuda")
+    host_streams = cachesim.build_streams(traces, device="cpu")
+    for n, a, b in zip(names, dev_streams, host_streams):
+        if not np.array_equal(a.dist, b.dist):
+            raise AssertionError(f"sweep: {n}: the card's distances differ from the host's")
+    streams = dict(zip(names, host_streams))
+    longest_mlperf = max((n for n in names if n.startswith("mlperf.")),
+                         key=lambda n: len(streams[n].op_idx))
+
+    # the registry's traffic matrices, at every capacity Table V and the
+    # baseline need: the engines' one full scan each
+    caps = sorted({float(c) for cfg in copa.TABLE_V + [copa.GPU_N_BASE]
+                   for c in sweep.TraceAnalysis.capacities_for(cfg.build())})
+    if len(scans.get("traffic_device", ())) != 1 or len(scans.get("traffic_host", ())) != 1:
+        raise AssertionError(f"sweep: one traffic scan a side expected: "
+                             f"{ {k: len(v) for k, v in scans.items()} }")
+    dev_traffic, host_traffic = scans["traffic_device"][0][2], scans["traffic_host"][0][2]
+    if dev_traffic[0].shape[0] != len(caps):
+        raise AssertionError(f"sweep: the engines scanned {dev_traffic[0].shape[0]} capacities")
+    wb_diff = traffic_agree("registry", dev_traffic, host_traffic)
+    dev_batch = sweep.suite_analysis_for(traces, device="cuda").batch
+    host_batch = sweep.suite_analysis_for(traces, device="cpu").batch
+    # the device scans again, warm
+    rows = {i: (s.tensor_idx, s.sizes) for i, s in enumerate(host_streams)}
+    _, mattson_warm_ms, _ = event_ms(lambda: cachesim._device_distances(rows, cuda))
+    _, traffic_warm_ms, _ = event_ms(lambda: dev_batch.traffic_matrices(caps))
+
+    def scan_ms(key):
+        calls = scans.get(key, [])
+        return {"calls": len(calls), "device_ms": sum(c[0] for c in calls),
+                "host_ms": sum(c[1] for c in calls)}
+
+    # the longest stream and the longest MLPerf stream, each a one-row batch
+    alone = {}
+    for i in {max(range(len(names)), key=lambda i: len(host_streams[i].op_idx)),
+              names.index(longest_mlperf)}:
+        dist = cachesim._device_distances({0: rows[i]}, cuda)[0]
+        if not np.array_equal(dist, host_streams[i].dist):
+            raise AssertionError(f"sweep: {names[i]} alone: distances differ from the host's")
+        sl = host_batch.op_slice(i)
+        one = cachesim.StreamBatch.pad([host_streams[i]], device=cuda).traffic_matrices(caps)
+        alone[names[i]] = {"touches": len(host_streams[i].op_idx), "wb_max_rel_diff": traffic_agree(
+            names[i], one, (host_traffic[0][:, sl], host_traffic[1][:, sl]))}
+
+    # the serving simulator's cost grids
+    serve = {}
+    for bench, kw in (("resnet", {}),
+                      ("gnmt", {"kv_bytes_per_token": 64 * 1024, "seq_edges": (64, 4096, 1 << 20),
+                                "tokens_per_pass": 50,
+                                "prefill_scenario": "lm.tinyllama-1.1b.prefill_32k"})):
+        got = sweep.serve_cost_grids(bench, [copa.GPU_N_BASE, copa.HBM_L3], device="cuda", **kw)
+        want = sweep.serve_cost_grids(bench, [copa.GPU_N_BASE, copa.HBM_L3], device="cpu", **kw)
+        for cfg in got:
+            a, b = got[cfg], want[cfg]
+            if not (a.batches == b.batches and a.seq_edges == b.seq_edges
+                    and all(sweep_close(x, y) for x, y in zip(a.step_time_s.ravel(),
+                                                              b.step_time_s.ravel()))
+                    and sweep_close(a.prefill_s_per_token, b.prefill_s_per_token)):
+                raise AssertionError(f"sweep: serve_cost_grids({bench}) {cfg} differs")
+        serve[bench] = {cfg: {"equal": bool(np.array_equal(got[cfg].step_time_s,
+                                                            want[cfg].step_time_s)),
+                              "step_ms": (got[cfg].step_time_s * 1e3).tolist()} for cfg in got}
+    awkward = {**sweep_awkward(caps), "alone": alone}
+    peak = torch.cuda.max_memory_allocated() - held
+
+    def geomeans(suite):
+        members = [registry.scenario(n).name for n in registry.suite(suite)]
+        return {cfg.name: grid.geomean_speedup(cfg.name, members) for cfg in copa.TABLE_V}
+
+    blocks = cachesim._mattson_blocks({i: r[0] for i, r in rows.items()})
+    row = {"phase": "sweep", "card": card, "scenarios": len(names),
+           "families": {f: sum(n.startswith(f + ".") for n in names)
+                        for f in ("hpc", "lm", "mlperf", "serve", "kernel")},
+           "touches": int(sum(len(s.op_idx) for s in host_streams)),
+           "longest": {"scenario": names[max(range(len(names)),
+                                            key=lambda i: len(host_streams[i].op_idx))],
+                       "touches": max(len(s.op_idx) for s in host_streams)},
+           "longest_mlperf": {"scenario": longest_mlperf,
+                              "touches": len(streams[longest_mlperf].op_idx)},
+           "mattson_blocks": len(blocks), "traffic_blocks": len(dev_batch._blocks),
+           "capacities": caps, "grid": grids,
+           "engine_s": {side: {"cold": runs[0][1], "warm": runs[1][1]}
+                        for side, runs in engines.items()},
+           "traces_s": traces_s,
+           "mattson": {"card_in_engine": scan_ms("mattson_device"),
+                       "card_warm_device_ms": mattson_warm_ms,
+                       "host_numpy_in_engine": scan_ms("mattson_host")},
+           "traffic": {"card_in_engine": scan_ms("traffic_device"),
+                       "card_warm_device_ms": traffic_warm_ms,
+                       "host_numpy_in_engine": scan_ms("traffic_host"),
+                       "wb_max_rel_diff": wb_diff},
+           "serve_cost_grids": serve, "awkward": awkward,
+           "peak_device_bytes": peak,
+           "geomean_speedup_model_output": {
+               "note": "the analytic model's output for the paper's GPU-N configurations "
+                       "(Table V), not a measurement of this card",
+               "mlperf.infer.large": geomeans("mlperf.infer.large"),
+               "mlperf.train.large": geomeans("mlperf.train.large")},
+           "seconds": time.perf_counter() - t_phase}
+    # the memos hold every registry trace and stream: let the model phases have the memory
+    cachesim.stream_cache_clear()
+    sweep._ANALYSES.clear()
+    sweep._SUITES.clear()
+    sweep._KV_SESSIONS.clear()
+    del engines, grid, dev_streams, host_streams, streams, dev_batch, host_batch, traces
+    free_memory()
+    return row
 
 
 def randn(gen, shape, dtype):
@@ -1636,32 +2004,37 @@ def phase_serve_hybrid(cfg) -> dict:
     naive.params = model.params                      # the same weights, not a copy
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
-    batches = {"prefill": {"tokens": prompts}}
+    engine_prompts = prompts[:, :ENGINE_PROMPT]
+    batches = {"prefill": {"tokens": prompts}, "prefill_short": {"tokens": engine_prompts}}
     n_shared = cfg.n_layers // cfg.attn_every
-    drive_steps = PROMPT_LEN + HYBRID_GEN_STEPS - 1  # decode-step calls in one generate
-    want = {"prefill": {"ssd_scan": cfg.n_layers, "flash_attention": n_shared,
-                        "fused_ffn": n_shared, "flash_decode": 0},
+    drive_steps = ENGINE_PROMPT + HYBRID_GEN_STEPS - 1  # decode-step calls in one generate
+    per_prefill = {"ssd_scan": cfg.n_layers, "flash_attention": n_shared, "fused_ffn": n_shared,
+                   "flash_decode": 0}
+    want = {"prefill": per_prefill, "prefill_short": {**per_prefill, "flash_attention": 0},
             "generate": {"ssd_scan": 0, "flash_attention": 0, "fused_ffn": n_shared * drive_steps,
                          "flash_decode": n_shared * drive_steps}}
-    # K4's route: the prefill step's T = 2048 takes the tiled route, decode's
-    # T = 4 the row tiles; K5's: the prefill step's bf16 scan at N=64 the mma route
-    want_by_route = {"prefill": {"ssd_scan": {"mma": cfg.n_layers, "fma": 0},
-                                 "fused_ffn": {"tiled": n_shared, "rowtile": 0}},
+    # K4's route: the prefill steps' T = 2048 and T = 256 (the tiled route's
+    # threshold) take the tiled route, decode's T = 4 the row tiles; K5's: the
+    # prefill steps' bf16 scan at N=64 the mma route
+    per_route = {"ssd_scan": {"mma": cfg.n_layers, "fma": 0},
+                 "fused_ffn": {"tiled": n_shared, "rowtile": 0}}
+    want_by_route = {"prefill": per_route, "prefill_short": per_route,
                      "generate": {"ssd_scan": {"mma": 0, "fma": 0},
                                   "fused_ffn": {"tiled": 0, "rowtile": n_shared * drive_steps}}}
 
     torch.cuda.reset_peak_memory_stats()
-    ker = drive(model, prompts, batches, counters, HYBRID_GEN_STEPS)
+    ker = drive(model, engine_prompts, batches, counters, HYBRID_GEN_STEPS)
     peak_bytes = torch.cuda.max_memory_allocated()
     if ker["by_route"] != want_by_route:
         raise AssertionError(f"launches by route {ker['by_route']}, expected {want_by_route}")
-    ref = drive(naive, prompts, batches, counters, HYBRID_GEN_STEPS)
-    timed = drive(model, prompts, batches, counters, HYBRID_GEN_STEPS)  # the first paid for start-up
+    ref = drive(naive, engine_prompts, batches, counters, HYBRID_GEN_STEPS)
+    # the first drive paid for start-up
+    timed = drive(model, engine_prompts, batches, counters, HYBRID_GEN_STEPS)
     check_drives("serve_hybrid", cfg, ker, ref, timed, want, HYBRID_GEN_STEPS)
     kl, rl = ker["logits"], ref["logits"]
     errs = {
         "engine_vs_prefill": logits_agree("hybrid: engine vs prefill step (kernel path)",
-                                          kl["engine"], kl["prefill"]),
+                                          kl["engine"], kl["prefill_short"]),
         "prefill_kernel_vs_naive": logits_agree("hybrid: prefill step, kernel vs naive",
                                                 kl["prefill"], rl["prefill"]),
         "engine_kernel_vs_naive": logits_agree("hybrid: engine, kernel vs naive",
@@ -1687,6 +2060,7 @@ def phase_serve_hybrid(cfg) -> dict:
     row = {"phase": "serve_hybrid", "arch": cfg.name, "n_layers": cfg.n_layers,
            "shared_block_calls": n_shared, "dtype": "bfloat16", "impl": "kernel",
            "fused_ffn": True, "batch": BATCH, "prompt_len": PROMPT_LEN,
+           "engine_prompt_len": ENGINE_PROMPT,
            "gen_steps": HYBRID_GEN_STEPS, "max_len": MAX_LEN, "launches": ker["launches"],
            "launches_by_route": ker["by_route"],
            "logit_max_abs_diff": errs,
@@ -1696,7 +2070,7 @@ def phase_serve_hybrid(cfg) -> dict:
            "layer0_state_max_abs": float(st.abs().max()),
            "layer0_state_rel_err": rel_err(st_fwd, st),
            "layer0_conv_state_equal": conv_equal,
-           **serve_times(ker, ref, timed, prompts, batches["prefill"], HYBRID_GEN_STEPS),
+           **serve_times(ker, ref, timed, engine_prompts, batches["prefill"], HYBRID_GEN_STEPS),
            "max_memory_allocated_bytes": peak_bytes}
     emit(row)
 
@@ -1855,19 +2229,22 @@ def phase_serve_vlm(cfg) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda", generator=gen)
     patches = randn(gen, (BATCH, VLM_PATCHES, cfg.d_model), torch.bfloat16)
+    engine_prompts = prompts[:, :ENGINE_PROMPT]
     batches = {"prefill": {"tokens": prompts, "patch_embeds": patches},
-               "prefill_no_patches": {"tokens": prompts}}
+               "prefill_no_patches": {"tokens": prompts},
+               "prefill_short": {"tokens": engine_prompts}}
     counters = (flash_attention, flash_decode)
-    drive_steps = PROMPT_LEN + FAMILY_GEN_STEPS - 1
+    drive_steps = ENGINE_PROMPT + FAMILY_GEN_STEPS - 1
     per_prefill = {"flash_attention": cfg.n_layers, "flash_decode": 0}
     want = {"prefill": per_prefill, "prefill_no_patches": per_prefill,
+            "prefill_short": {"flash_attention": 0, "flash_decode": 0},
             "generate": {"flash_attention": 0, "flash_decode": cfg.n_layers * drive_steps}}
 
     torch.cuda.reset_peak_memory_stats()
-    ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
+    ker = drive(model, engine_prompts, batches, counters, FAMILY_GEN_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS)
-    timed = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
+    ref = drive(naive, engine_prompts, batches, counters, FAMILY_GEN_STEPS)
+    timed = drive(model, engine_prompts, batches, counters, FAMILY_GEN_STEPS)
     check_drives("serve_vlm", cfg, ker, ref, timed, want, FAMILY_GEN_STEPS)
     kl, rl = ker["logits"], ref["logits"]
     errs = {
@@ -1878,7 +2255,7 @@ def phase_serve_vlm(cfg) -> dict:
             kl["prefill_no_patches"], rl["prefill_no_patches"]),
         # the engine embeds token ids only, as the reference's does
         "engine_vs_prefill_no_patches": logits_agree("vlm: engine vs prefill step (kernel path)",
-                                                     kl["engine"], kl["prefill_no_patches"]),
+                                                     kl["engine"], kl["prefill_short"]),
         "engine_kernel_vs_naive": logits_agree("vlm: engine, kernel vs naive",
                                                kl["engine"], rl["engine"]),
     }
@@ -1889,12 +2266,12 @@ def phase_serve_vlm(cfg) -> dict:
     row = {"phase": "serve_vlm", "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "bfloat16",
            "heads": {"H": cfg.n_heads, "KVH": cfg.n_kv_heads, "D": cfg.head_dim},
            "n_params": count_params(model.specs()), "batch": BATCH, "prompt_len": PROMPT_LEN,
-           "patches": VLM_PATCHES, "gen_steps": FAMILY_GEN_STEPS, "max_len": MAX_LEN,
+           "engine_prompt_len": ENGINE_PROMPT, "patches": VLM_PATCHES, "gen_steps": FAMILY_GEN_STEPS, "max_len": MAX_LEN,
            "launches": ker["launches"], "logit_max_abs_diff": errs,
            "logit_max_abs_shift_by_patches": patch_shift,
            "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
            "kernel_runs_bit_identical": True,
-           **serve_times(ker, ref, timed, prompts, batches["prefill"], FAMILY_GEN_STEPS),
+           **serve_times(ker, ref, timed, engine_prompts, batches["prefill"], FAMILY_GEN_STEPS),
            "prefill_no_patches_ms": timed["seconds"]["prefill_no_patches"] * 1e3,
            "init_max_memory_allocated_bytes": init_peak, "max_memory_allocated_bytes": peak}
     row["phase_s"] = time.perf_counter() - t_start
@@ -1919,10 +2296,11 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
 
     t_start = time.perf_counter()
     counters = (flash_attention, flash_decode)
-    drive_steps = PROMPT_LEN + FAMILY_GEN_STEPS - 1
+    drive_steps = ENGINE_PROMPT + FAMILY_GEN_STEPS - 1
     prompts = torch.randint(0, full_cfg.vocab_size, (BATCH, PROMPT_LEN), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
-    batches = {"prefill": {"tokens": prompts}}
+    engine_prompts = prompts[:, :ENGINE_PROMPT]
+    batches = {"prefill": {"tokens": prompts}, "prefill_short": {"tokens": engine_prompts}}
 
     def build(n, dtype):
         free_memory()
@@ -1938,6 +2316,7 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
         # MLA's absorbed decode runs on the latent cache with no kernel
         decode = 0 if cfg.use_mla else cfg.n_layers * drive_steps
         return {"prefill": {"flash_attention": cfg.n_layers, "flash_decode": 0},
+                "prefill_short": {"flash_attention": 0, "flash_decode": 0},
                 "generate": {"flash_attention": 0, "flash_decode": decode}}
 
     def routed(cfg):
@@ -1946,7 +2325,7 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
     def routing(cfg, ker, ref):
         # the engine's prompt steps (teacher-forced, so both paths see the
         # same tokens); the steps after follow each path's own tokens
-        prompt_calls = PROMPT_LEN * routed(cfg)
+        prompt_calls = ENGINE_PROMPT * routed(cfg)
         return {"prefill": routing_agreement(ker["routes"]["prefill"], ref["routes"]["prefill"],
                                              routed(cfg)),
                 "engine_prompt": routing_agreement(ker["routes"]["generate"][:prompt_calls],
@@ -1956,15 +2335,15 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
     # ---- bf16, n_layers layers ----
     cfg, model, naive, init_peak = build(n_layers, torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
-    ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
+    ker = drive(model, engine_prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
     peak = torch.cuda.max_memory_allocated()
     # bf16 router logits over 128 experts nearly tie, and a flipped k-th expert
     # moves a token by far more than attention's own rounding: the naive path
     # sends each token to the experts the kernel path chose (its own picks are
     # recorded, given the same routing in the layers before), so the logits
     # compare attention's two paths
-    ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS, replay=ker["routes"])
-    timed = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS)
+    ref = drive(naive, engine_prompts, batches, counters, FAMILY_GEN_STEPS, replay=ker["routes"])
+    timed = drive(model, engine_prompts, batches, counters, FAMILY_GEN_STEPS)
     check_drives(phase, cfg, ker, ref, timed, want(cfg), FAMILY_GEN_STEPS)
     agree = routing(cfg, ker, ref)
     tokens = BATCH * PROMPT_LEN
@@ -1972,19 +2351,20 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
     if any(dropped_assignments(ker["routes"]["generate"], cfg)):
         raise AssertionError(f"{phase}: a decode step ({BATCH} tokens, capacity "
                              f"{_capacity(BATCH, cfg)}) dropped an assignment")
-    # the prefill step packs 2048 tokens against one capacity, a decode step 4:
-    # the engine is held against a prefill step that drops nothing
-    # (capacity_factor = E / k) and routes each token as the engine's prompt
-    # steps did (a call a step and routed layer, B tokens each)
+    # a prefill step packs all its tokens against one capacity, a decode step
+    # 4: the engine is held against a prefill step on its prompt that drops
+    # nothing (capacity_factor = E / k) and routes each token as the engine's
+    # prompt steps did (a call a step and routed layer, B tokens each)
     L = routed(cfg)
-    prompt_routes = ker["routes"]["generate"][:PROMPT_LEN * L]
-    engine_routes = [torch.stack(prompt_routes[i::L], dim=1).reshape(tokens, cfg.top_k)
+    prompt_routes = ker["routes"]["generate"][:ENGINE_PROMPT * L]
+    engine_routes = [torch.stack(prompt_routes[i::L], dim=1).reshape(BATCH * ENGINE_PROMPT,
+                                                                      cfg.top_k)
                      for i in range(L)]
     no_drops = LanguageModel(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
                              impl="kernel")
     no_drops.params = model.params
     with routes(engine_routes):
-        no_drop_logits = make_prefill_step(no_drops)(batches["prefill"])[:, 0].float()
+        no_drop_logits = make_prefill_step(no_drops)(batches["prefill_short"])[:, 0].float()
     kl, rl = ker["logits"], ref["logits"]
     errs = {
         "prefill_kernel_vs_naive": logits_agree(f"{phase}: prefill step, kernel vs naive",
@@ -2010,6 +2390,7 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
                        "capacity_prefill": _capacity(tokens, cfg),
                        "capacity_decode": _capacity(BATCH, cfg)},
            "n_params": count_params(model.specs()), "batch": BATCH, "prompt_len": PROMPT_LEN,
+           "engine_prompt_len": ENGINE_PROMPT,
            "gen_steps": FAMILY_GEN_STEPS, "max_len": MAX_LEN, "launches": ker["launches"],
            "cache": {k: list(v.shape) for k, v in timed["engine"].cache.items()},
            "naive_routes": "the kernel path's, replayed",
@@ -2019,15 +2400,15 @@ def phase_serve_routed(phase: str, full_cfg, n_layers: int, fp32_layers: int) ->
            "logit_max_abs_diff": errs,
            "tokens_equal_naive": bool(torch.equal(ker["tokens"], ref["tokens"])),
            "kernel_runs_bit_identical": True,
-           **serve_times(ker, ref, timed, prompts, batches["prefill"], FAMILY_GEN_STEPS),
+           **serve_times(ker, ref, timed, engine_prompts, batches["prefill"], FAMILY_GEN_STEPS),
            "init_max_memory_allocated_bytes": init_peak, "max_memory_allocated_bytes": peak}
     launches = total_launches(ker)
     del model, naive, no_drops, ker, ref, timed
 
     # ---- fp32, fp32_layers layers: each path routes for itself ----
     cfg32, model, naive, init_peak32 = build(fp32_layers, torch.float32)
-    ker = drive(model, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
-    ref = drive(naive, prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
+    ker = drive(model, engine_prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
+    ref = drive(naive, engine_prompts, batches, counters, FAMILY_GEN_STEPS, record_routes=True)
     check_launches(f"{phase} fp32", ker, ref, want(cfg32))
     kl, rl = ker["logits"], ref["logits"]
     row["fp32"] = {
@@ -2887,11 +3268,12 @@ def same_bits(name: str, got: dict, want: dict) -> None:
                                  f"{w.dtype} {tuple(w.shape)})")
 
 
-def phase_train_ckpt(cfg) -> dict:
-    """tinyllama-1.1b at full size through ``launch.train``'s runner
-    (``make_runner``, as ``main`` builds it: bf16 parameters, fp32 master
-    weights and moments, remat "full", impl="kernel", 4 x 1024 batches from
-    the trainer's data pipeline). Run A: CKPT_STEPS steps, no checkpoint.
+def phase_train_ckpt(full_cfg) -> dict:
+    """tinyllama-1.1b at full width, cut to CKPT_LAYERS layers, through
+    ``launch.train``'s runner (``make_runner``, as ``main`` builds it, on a
+    name registered in ``configs.ARCHS`` for the phase: bf16 parameters,
+    fp32 master weights and moments, remat "full", impl="kernel", 4 x 1024
+    batches from the trainer's data pipeline). Run A: CKPT_STEPS steps, no checkpoint.
     Run B: the same with a checkpoint every CKPT_SAVE_EVERY steps, its
     segment failing once after step CKPT_FAIL_AFTER before that step's
     save; the runner restarts from step 2. B's resumed losses, final
@@ -2905,6 +3287,7 @@ def phase_train_ckpt(cfg) -> dict:
     cost, the disk's free bytes and peak device memory across the restart."""
     import shutil
 
+    import repro_torch.configs as configs
     from repro_torch.checkpoint.ckpt import _unflatten, restore
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
@@ -2918,6 +3301,8 @@ def phase_train_ckpt(cfg) -> dict:
     t_start = time.perf_counter()
     free_memory()
     cuda = torch.device("cuda")
+    cfg = dataclasses.replace(full_cfg, name=f"{full_cfg.name}-{CKPT_LAYERS}-layers",
+                              n_layers=CKPT_LAYERS)
     train_counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     layers = cfg.n_layers
     per_step = {"flash_attention": 2 * layers, "flash_attention_bwd_dq": layers,
@@ -2962,6 +3347,7 @@ def phase_train_ckpt(cfg) -> dict:
         seconds = time.perf_counter() - t0
         return st, runner, {c.__name__: c.launches for c in train_counters}, held, seconds
 
+    configs.ARCHS[cfg.name] = cfg
     try:
         # run A: uninterrupted, its final state kept in host memory
         st_a, _, launches_a, _, seconds_a = run()
@@ -3052,6 +3438,7 @@ def phase_train_ckpt(cfg) -> dict:
         del memory
         free_memory()
     finally:
+        del configs.ARCHS[cfg.name]
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     saves = [dict(r, held_loop_s=held, write_gb_per_s=r["bytes"] / r["write_s"] / 1e9)
@@ -3064,7 +3451,9 @@ def phase_train_ckpt(cfg) -> dict:
     launches["flash_decode"] = served["launches"]["generate"]["flash_decode"]
     launches["flash_attention"] += (served["launches"]["prefill"]["flash_attention"]
                                     + memory_launches["flash_attention"])
-    row = {"phase": "train_ckpt", "arch": cfg.name, "n_layers": layers, "n_params": n_params,
+    row = {"phase": "train_ckpt", "arch": full_cfg.name, "n_layers": layers,
+           "reduced": f"depth {layers} of {full_cfg.n_layers} layers; full width",
+           "n_params": n_params,
            "dtype": "bfloat16", "impl": "kernel", "remat": "full",
            "recipe": {"source": "TRAIN_MSM (src/repro/core/msm.py)", "master_weights": True,
                       "moment_dtype": "float32"},
@@ -4088,6 +4477,7 @@ def main() -> int:
                                for r in k5_mma.values()):
         raise AssertionError(f"K5's mma instances must build without spills: {k5_mma}")
     phase_check(ptxas)
+    emit(phase_sweep(card))
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     vlm, moe, mla = configs.get(VLM_ARCH), configs.get(MOE_ARCH), configs.get(MLA_ARCH)

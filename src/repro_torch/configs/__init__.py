@@ -22,8 +22,8 @@ from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2
 from repro_torch.configs.whisper_base import CONFIG as WHISPER
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in (TINYLLAMA, YI_6B, MISTRAL_NEMO, GRANITE, QWEN3_MOE, MAMBA2, ZAMBA2,
-                        INTERNVL2, DEEPSEEK_V2, WHISPER)
+    c.name: c for c in (TINYLLAMA, YI_6B, MISTRAL_NEMO, GRANITE, QWEN3_MOE, DEEPSEEK_V2,
+                        MAMBA2, ZAMBA2, INTERNVL2, WHISPER)
 }
 
 

@@ -8,21 +8,25 @@ cache is laid out and sharded, which kernels filter HBM traffic.
 
 ``compose(domain, ...)`` returns the policy bundle for a workload domain the
 same way a COPA SKU pairs a GPM with an MSM; ``recommend()`` derives the
-domain from an (arch, shape) cell. The policies are the JAX reference
+domain from an (arch, shape) cell, and ``analyze()`` runs the paper's cache
+model over the cell's trace to quantify how much traffic each policy filters
+(the software analogue of Fig 4). The policies are the JAX reference
 package's, field for field (``attention_impl`` keeps its names: the
 dry-run maps ``chunked`` and ``pallas`` to the port's ``impl="kernel"``).
 Two departures: the capacity rule reads one H100's 80 GB where the
 reference reads a TPU v5e's 16 GiB, so on 256 devices no configuration
 needs ``msm_train_large``; and ``recommend`` reads no ``REPRO_OPTS``
 overrides (``serve_fsdp=False`` and ``kv_cache_dtype="int8"`` are asked
-for through ``compose``). The reference's ``analyze`` (the cache model over
-a cell's trace) is not ported here.
+for through ``compose``). ``analyze`` and ``analyze_suite`` take the
+``device`` their scans run on (``None``: the card, as ``core.sweep``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from repro_torch.core.hw import H100_SXM
+from repro_torch.core.hw import H100_SXM, MB
+from repro_torch.core.sweep import analysis_for, suite_analysis_for
+from repro_torch.core.trace import Trace
 
 
 @dataclass(frozen=True)
@@ -138,3 +142,117 @@ def recommend(shape_name: str, n_params: float) -> MemoryPolicy:
     if shape_name.startswith("long"):
         return LONG_CONTEXT_MSM
     return DECODE_MSM
+
+
+KV_BYTES_PER_ELEM = {"float32": 4, "bfloat16": 2, "float16": 2,
+                     "fp8": 1, "int8": 1}
+
+# Fraction of DRAM held back for activations / workspace on top of the
+# resident weights when the reserve is derived from a model config.
+_ACTIVATION_MARGIN = 0.05
+
+
+def kv_reserve_frac(spec, model_config=None) -> float:
+    """The DRAM fraction set aside for weights + activations.
+
+    With a :class:`~repro_torch.configs.base.ModelConfig` the reserve is the
+    model's actual resident weight bytes (``n_params`` at the config's
+    param dtype) plus a small activation margin; without one, the
+    historical conservative 0.30 stands in. Raises when the weights alone
+    leave no room for KV — that config can't serve on this MSM at all."""
+    if model_config is None:
+        return 0.30
+    bytes_per_param = KV_BYTES_PER_ELEM.get(model_config.dtype, 2)
+    frac = (model_config.n_params() * bytes_per_param / spec.dram_capacity
+            + _ACTIVATION_MARGIN)
+    if frac >= 1.0:
+        raise ValueError(
+            f"model {model_config.name} needs {frac:.0%} of DRAM for "
+            f"weights + activations — no capacity left for KV")
+    return frac
+
+
+def kv_token_capacity(spec, policy: MemoryPolicy, elems_per_token: int,
+                      reserve_frac: float | None = None, *,
+                      model_config=None) -> int:
+    """Resident KV tokens one serving instance can hold — the admission
+    bound of the request-level simulator (``repro_torch.serve.sim``).
+
+    Usable DRAM (capacity minus the reserve set aside for weights and
+    activations — derived via :func:`kv_reserve_frac` when ``reserve_frac``
+    is None) over the per-token KV bytes; the element width comes from the
+    policy's ``kv_cache_dtype``, so an int8-KV MSM holds 2x the tokens of a
+    bf16 one, and a COPA MSM with ``dram_capacity_scale`` > 1 holds
+    proportionally more — capacity-driven specialization at the serving
+    layer. The policy's ``kv_compression_ratio`` multiplies the effective
+    capacity (Buddy-Compression residency; the bandwidth tax is priced by
+    the serving cost grids, not here)."""
+    if reserve_frac is None:
+        reserve_frac = kv_reserve_frac(spec, model_config)
+    if not 0.0 <= reserve_frac < 1.0:
+        raise ValueError("reserve_frac must be in [0, 1)")
+    if elems_per_token < 1:
+        raise ValueError("elems_per_token must be >= 1")
+    per_token = elems_per_token * KV_BYTES_PER_ELEM[policy.kv_cache_dtype]
+    usable = (1.0 - reserve_frac) * spec.dram_capacity \
+        * policy.kv_compression_ratio
+    return int(usable // per_token)
+
+
+def kv_page_capacity(spec, policy: MemoryPolicy, elems_per_token: int,
+                     page_size: int, reserve_frac: float | None = None, *,
+                     model_config=None) -> int:
+    """:func:`kv_token_capacity` in block-table pages: the physical page
+    pool one instance's ``PagedKv`` allocator manages (its oversubscribable
+    commit budget is this times the spec's oversubscription factor)."""
+    if page_size < 1:
+        raise ValueError("page_size must be >= 1")
+    return kv_token_capacity(spec, policy, elems_per_token, reserve_frac,
+                             model_config=model_config) // page_size
+
+
+@dataclass
+class TrafficAnalysis:
+    """Fig-4-style sweep for a cell: traffic filtered per on-chip capacity."""
+
+    trace_name: str
+    baseline_traffic: float
+    sweep: dict[float, float]
+
+    def reduction_at(self, capacity: float) -> float:
+        return self.baseline_traffic / max(self.sweep[capacity], 1.0)
+
+
+DEFAULT_CAPACITIES_MB = (60, 120, 240, 480, 960, 1920, 3840)
+
+
+def analyze(trace: Trace, capacities_mb: tuple[int, ...] = DEFAULT_CAPACITIES_MB,
+            device=None) -> TrafficAnalysis:
+    caps = [c * MB for c in capacities_mb]
+    sweep = analysis_for(trace, device=device).dram_traffic(caps)
+    return TrafficAnalysis(
+        trace_name=trace.name,
+        baseline_traffic=sweep[caps[0]],
+        sweep=sweep,
+    )
+
+
+def analyze_suite(
+    traces: list[Trace],
+    capacities_mb: tuple[int, ...] = DEFAULT_CAPACITIES_MB,
+    device=None,
+) -> list[TrafficAnalysis]:
+    """Suite-level :func:`analyze`: one padded
+    :class:`~repro_torch.core.sweep.SuiteAnalysis` pass prices the Fig-4 sweep
+    for every cell at once (bit-identical per trace to :func:`analyze` —
+    the per-trace caches are shared, so mixing the two stays consistent)."""
+    caps = [c * MB for c in capacities_mb]
+    mat = suite_analysis_for(list(traces), device=device).dram_traffic(caps)
+    return [
+        TrafficAnalysis(
+            trace_name=t.name,
+            baseline_traffic=float(row[0]),
+            sweep={c: float(v) for c, v in zip(caps, row)},
+        )
+        for t, row in zip(traces, mat)
+    ]

@@ -50,7 +50,12 @@ def test_every_module_is_checked():
                    "core/hw.py", "core/roofline.py", "core/msm.py", "launch/specs.py",
                    "launch/dryrun.py", "core/trace.py", "check/__init__.py",
                    "check/__main__.py", "check/facts.py", "check/rules.py", "check/streams.py",
-                   "check/catalog.py", "check/ptxas.py", "check/cli.py"):
+                   "check/catalog.py", "check/ptxas.py", "check/cli.py",
+                   "core/stackdist.py", "core/cachesim.py", "core/copa.py", "core/sweep.py",
+                   "core/perfmodel.py", "workloads/__init__.py", "workloads/common.py",
+                   "workloads/hpc.py", "workloads/mlperf.py", "workloads/lm.py",
+                   "workloads/kernels.py", "workloads/registry.py", "serve/paged.py",
+                   "serve/sim.py"):
         assert needed in names
     for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
                "ssd_scan.cu", "fused_ffn.cu", "mma_tile.cuh"):
@@ -117,6 +122,33 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_host_mesh(model=1, device="cuda")
     assert not dist.is_initialized()
+
+
+def test_analytic_entry_points_raise_without_a_card():
+    """The sweep's scans run on the card unless the caller asks for the CPU."""
+    needs_no_card()
+    from repro_torch.core import cachesim, copa, msm, sweep
+    from repro_torch.workloads import registry
+
+    names = registry.suite("mlperf.infer.large")
+    traces = [registry.scenario(n) for n in names]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.SweepEngine(names, configs=copa.TABLE_V).run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.suite_analysis_for(traces)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cachesim.build_streams(traces)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.serve_cost_grids("resnet", [copa.GPU_N_BASE])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.analysis_for(traces[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        msm.analyze(traces[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.SweepEngine(names, device="cuda").run()
+    # asked for, the CPU runs the NumPy scans and keeps nothing on a device
+    suite = sweep.suite_analysis_for(traces, device="cpu")
+    assert suite.batch.device is None
 
 
 def test_checkpoint_entry_points_raise_without_a_card(tmp_path):
