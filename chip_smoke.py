@@ -35,6 +35,24 @@ when the line was printed):
            per-config geomean speedups over mlperf.infer.large and
            mlperf.train.large (the paper's GPU-N configurations: model
            output, not a card measurement); the phase's seconds
+  fleet    the fleet simulator (serve.fleet, serve.fleetbatch), obs and
+           launch.serve --sim, their cost grids priced on the card:
+           examples/fleet_at_scale.py's run at full size. gnmt's grids for
+           GPU-N and HBM+L3 on the card against the host's (rtol 1e-12, and
+           whether equal to the bit); one 20,000-request bursty trace sized
+           by scan_fleet's bisection up to 320 instances per config on each
+           side's grids (the ladders and sizes must be equal where the grids
+           are equal to the bit); the sized GPU-N fleet again with
+           ObsConfig(level=1): its Chrome trace (2,000 requests) valid, its
+           timeseries at makespan / 12 summing to the run's totals; the
+           batched core against FleetSim.run(batched=False) on the trace's
+           first 2,000 requests on 16 instances, equal to the bit;
+           launch.serve --sim --bench resnet on the card and with --device
+           cpu, equal rows; explain(["mlperf.*"]) on the card against the
+           host, each cell's bottleneck equal and bound_s within rtol 1e-12.
+           Each part's host seconds, the two scans' device ms, the peak
+           device memory, and the kernels' launches (none: no kernel lies
+           on this path)
   occupancy  cudaOccupancyMaxActiveClusters of K2b's cluster launch at the
            training shape and at MLA's (deepseek-v2-236b's heads, head dims
            (192, 128)), with its plan
@@ -704,6 +722,53 @@ def event_ms(fn) -> tuple[object, float, float]:
     return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
+@contextlib.contextmanager
+def timed_scans():
+    """The analytic stack's two scans timed where it calls them: the card's
+    by CUDA events, NumPy's by the host clock. Yields ``{where: [(device
+    ms, host ms, result), ...]}``, ``where`` one of ``mattson_host``,
+    ``mattson_device``, ``traffic_host`` and ``traffic_device``."""
+    from repro_torch.core import cachesim
+
+    scans: dict[str, list] = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            out, dev_ms, host_ms = event_ms(lambda: fn(*args, **kwargs))
+            where = name(*args) if callable(name) else name
+            scans.setdefault(where, []).append((dev_ms, host_ms, out))
+            return out
+        return call
+
+    originals = (cachesim._host_distances, cachesim._device_distances,
+                 cachesim.StreamBatch.traffic_matrices)
+    cachesim._host_distances = timed("mattson_host", originals[0])
+    cachesim._device_distances = timed("mattson_device", originals[1])
+    cachesim.StreamBatch.traffic_matrices = timed(
+        lambda batch, *_: "traffic_" + ("host" if batch.device is None else "device"), originals[2])
+    try:
+        yield scans
+    finally:
+        (cachesim._host_distances, cachesim._device_distances,
+         cachesim.StreamBatch.traffic_matrices) = originals
+
+
+def scan_totals(scans: dict, key: str) -> dict:
+    calls = scans.get(key, [])
+    return {"calls": len(calls), "device_ms": sum(c[0] for c in calls),
+            "host_ms": sum(c[1] for c in calls)}
+
+
+def clear_sweep_memos() -> None:
+    """The analytic stack's memos: every trace, stream and suite a phase made."""
+    from repro_torch.core import cachesim, sweep
+
+    cachesim.stream_cache_clear()
+    sweep._ANALYSES.clear()
+    sweep._SUITES.clear()
+    sweep._KV_SESSIONS.clear()
+
+
 def sweep_random_trace(rng, n_ops: int, n_tensors: int, name: str, max_bytes: int):
     """Many touches of few tensors, whole-number sizes of any value."""
     from repro_torch.core.trace import Trace
@@ -799,26 +864,9 @@ def phase_sweep(card: str) -> dict:
     held = torch.cuda.memory_allocated()
 
     # the engine, cold then warm, on each side; the two scans timed where
-    # the engines call them (the card's by CUDA events, NumPy's by the host
-    # clock) and their results kept
-    scans: dict[str, list] = {}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            out, dev_ms, host_ms = event_ms(lambda: fn(*args, **kwargs))
-            where = name(*args) if callable(name) else name
-            scans.setdefault(where, []).append((dev_ms, host_ms, out))
-            return out
-        return call
-
-    originals = (cachesim._host_distances, cachesim._device_distances,
-                 cachesim.StreamBatch.traffic_matrices)
-    cachesim._host_distances = timed("mattson_host", originals[0])
-    cachesim._device_distances = timed("mattson_device", originals[1])
-    cachesim.StreamBatch.traffic_matrices = timed(
-        lambda batch, *_: "traffic_" + ("host" if batch.device is None else "device"), originals[2])
+    # the engines call them and their results kept
     engines = {}
-    try:
+    with timed_scans() as scans:
         for side in ("cuda", "cpu"):
             runs = []
             for _ in range(2):
@@ -827,9 +875,6 @@ def phase_sweep(card: str) -> dict:
                 torch.cuda.synchronize()
                 runs.append((grid, time.perf_counter() - t0))
             engines[side] = runs
-    finally:
-        (cachesim._host_distances, cachesim._device_distances,
-         cachesim.StreamBatch.traffic_matrices) = originals
     grids = sweep_grids_agree(engines["cuda"][0][0], engines["cpu"][0][0])
     for side, runs in engines.items():
         if not all(same_row(a, b) for a, b in zip(runs[0][0].rows, runs[1][0].rows)):
@@ -863,11 +908,6 @@ def phase_sweep(card: str) -> dict:
     rows = {i: (s.tensor_idx, s.sizes) for i, s in enumerate(host_streams)}
     _, mattson_warm_ms, _ = event_ms(lambda: cachesim._device_distances(rows, cuda))
     _, traffic_warm_ms, _ = event_ms(lambda: dev_batch.traffic_matrices(caps))
-
-    def scan_ms(key):
-        calls = scans.get(key, [])
-        return {"calls": len(calls), "device_ms": sum(c[0] for c in calls),
-                "host_ms": sum(c[1] for c in calls)}
 
     # the longest stream and the longest MLPerf stream, each a one-row batch
     alone = {}
@@ -921,12 +961,12 @@ def phase_sweep(card: str) -> dict:
            "engine_s": {side: {"cold": runs[0][1], "warm": runs[1][1]}
                         for side, runs in engines.items()},
            "traces_s": traces_s,
-           "mattson": {"card_in_engine": scan_ms("mattson_device"),
+           "mattson": {"card_in_engine": scan_totals(scans, "mattson_device"),
                        "card_warm_device_ms": mattson_warm_ms,
-                       "host_numpy_in_engine": scan_ms("mattson_host")},
-           "traffic": {"card_in_engine": scan_ms("traffic_device"),
+                       "host_numpy_in_engine": scan_totals(scans, "mattson_host")},
+           "traffic": {"card_in_engine": scan_totals(scans, "traffic_device"),
                        "card_warm_device_ms": traffic_warm_ms,
-                       "host_numpy_in_engine": scan_ms("traffic_host"),
+                       "host_numpy_in_engine": scan_totals(scans, "traffic_host"),
                        "wb_max_rel_diff": wb_diff},
            "serve_cost_grids": serve, "awkward": awkward,
            "peak_device_bytes": peak,
@@ -937,11 +977,236 @@ def phase_sweep(card: str) -> dict:
                "mlperf.train.large": geomeans("mlperf.train.large")},
            "seconds": time.perf_counter() - t_phase}
     # the memos hold every registry trace and stream: let the model phases have the memory
-    cachesim.stream_cache_clear()
-    sweep._ANALYSES.clear()
-    sweep._SUITES.clear()
-    sweep._KV_SESSIONS.clear()
+    clear_sweep_memos()
     del engines, grid, dev_streams, host_streams, streams, dev_batch, host_batch, traces
+    free_memory()
+    return row
+
+
+# --------------------------------------------------------------------------------
+# the fleet simulator, priced on the card: fleet_at_scale's run at full size
+
+FLEET_REQUESTS = 20_000          # examples/fleet_at_scale.py's defaults
+FLEET_MAX_INSTANCES = 320
+FLEET_ORACLE = (2_000, 16)       # the oracle's cut: the first requests, on this many instances
+FLEET_TRACE_REQUESTS = 2_000
+GNMT_KV_BYTES_PER_TOKEN = 8 * 1024 * 2 * 4   # the example's gnmt decoder KV proxy
+EXPLAIN_RTOL = 1e-12             # the traffic scan's writebacks differ by up to 2.43e-16
+
+
+def fleet_arrivals(base, n_requests: int):
+    """fleet_at_scale's bursty stream and SLO, from the GPU-N grid ``base``."""
+    from repro_torch.serve.sim import ArrivalSpec, LengthDist, Slo
+
+    out_mean = 48
+    rate = 320 * 0.8 * base.saturated_rps(out_mean)
+    arrivals = ArrivalSpec(
+        name="example.mixed", rate=rate, n_requests=n_requests, burst_factor=3.0,
+        burst_fraction=0.25, period_s=n_requests / rate / 5.0,
+        prompt=LengthDist("fixed", mean=12, floor=1),
+        output=LengthDist("lognormal", mean=out_mean, sigma=0.4, floor=4))
+    slo = Slo(ttft_s=10 * base.step_time(1), tpot_s=5 * base.step_time(1), percentile=95)
+    return arrivals, slo
+
+
+def ladder_of(scanned: dict, slo) -> list:
+    return [[n, bool(slo.met(m))] for n, m in scanned.items()]
+
+
+def same_metrics(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name), equal_nan=True)
+               for f in dataclasses.fields(a))
+
+
+def fleet_results_equal(a, b) -> bool:
+    """Two ``FleetResult``s equal to the bit: request columns, step logs,
+    instance counts and scale events."""
+    cols = ("rid", "t_arrival", "prompt_tokens", "output_tokens", "t_admitted",
+            "t_first_token", "t_done", "tokens_emitted", "evictions")
+    logs = ("t_start", "t_end", "batch", "kv_reserved", "queued", "admitted", "pages")
+    return (all(np.array_equal(getattr(a.batch, c), getattr(b.batch, c), equal_nan=True)
+                for c in cols)
+            and len(a.step_logs) == len(b.step_logs)
+            and all(np.array_equal(getattr(x, c), getattr(y, c))
+                    for x, y in zip(a.step_logs, b.step_logs) for c in logs)
+            and a.n_instances_final == b.n_instances_final
+            and [dataclasses.astuple(e) for e in a.scale_events]
+            == [dataclasses.astuple(e) for e in b.scale_events])
+
+
+def phase_fleet(card: str) -> dict:
+    """The fleet simulator, ``obs`` and ``launch.serve --sim`` with their
+    cost grids priced on the card, each held against the host's NumPy
+    pricing (see the module docstring's ``fleet``). Returns the six
+    kernels' launches in the phase: none lies on this path."""
+    from repro_torch.core import copa, sweep
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_dkv,
+                                                         flash_attention_bwd_dq)
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_partial
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.obs.attribution import explain
+    from repro_torch.obs.timeline import chrome_trace, validate_chrome_trace
+    from repro_torch.serve.fleet import FleetSim, scan_fleet
+    from repro_torch.serve.sim import ObsConfig, RequestBatch
+
+    counters = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv, flash_decode,
+                flash_decode_partial, fused_ffn, ssd_scan)
+    for c in counters:
+        c.launches = 0
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    seconds, scans = {}, {}
+
+    # 1. gnmt's grids on the card and on the host
+    t0 = time.perf_counter()
+    with timed_scans() as scans["pricing"]:
+        grids = {side: sweep.serve_cost_grids(
+            "gnmt", [copa.GPU_N_BASE, copa.HBM_L3], tokens_per_pass=50,
+            kv_bytes_per_token=GNMT_KV_BYTES_PER_TOKEN, device=side) for side in ("cuda", "cpu")}
+    seconds["pricing"] = time.perf_counter() - t0
+    pricing = {}
+    for cfg in grids["cpu"]:
+        a, b = grids["cuda"][cfg], grids["cpu"][cfg]
+        if not (a.batches == b.batches and a.seq_edges == b.seq_edges
+                and all(sweep_close(x, y) for x, y in zip(a.step_time_s.ravel(),
+                                                          b.step_time_s.ravel()))
+                and sweep_close(a.prefill_s_per_token, b.prefill_s_per_token)):
+            raise AssertionError(f"fleet: serve_cost_grids(gnmt) {cfg}: card and host differ")
+        diff = np.abs(a.step_time_s - b.step_time_s)
+        pricing[cfg] = {"equal": bool(np.array_equal(a.step_time_s, b.step_time_s)
+                                      and a.prefill_s_per_token == b.prefill_s_per_token),
+                        "max_abs_diff_s": float(diff.max()),
+                        "max_rel_diff": float((diff / np.abs(b.step_time_s)).max())}
+    equal = all(p["equal"] for p in pricing.values())
+
+    # 2. fleet sizing: one bursty trace, bisected up to the cap, on each side's grids
+    sizing, sized = {}, {}
+    for side in ("cuda", "cpu"):
+        arrivals, slo = fleet_arrivals(grids[side]["GPU-N"], FLEET_REQUESTS)
+        t0 = time.perf_counter()
+        scanned = {cfg: scan_fleet(g, arrivals, slo, max_instances=FLEET_MAX_INSTANCES, seed=0,
+                                   strategy="bisect") for cfg, g in grids[side].items()}
+        seconds[f"sizing_{side}"] = time.perf_counter() - t0
+        sizing[side] = {cfg: ladder_of(m, slo) for cfg, m in scanned.items()}
+        sized[side] = {cfg: min((n for n, m in sc.items() if slo.met(m)), default=None)
+                       for cfg, sc in scanned.items()}
+        if side == "cuda":
+            card_scans, card_arrivals, card_slo = scanned, arrivals, slo
+    if equal:
+        for cfg, sc in card_scans.items():
+            if sizing["cuda"][cfg] != sizing["cpu"][cfg] or sized["cuda"][cfg] != sized["cpu"][cfg]:
+                raise AssertionError(f"fleet: {cfg}: the ladder on the card's grid "
+                                     f"{sizing['cuda'][cfg]} differs from the host's "
+                                     f"{sizing['cpu'][cfg]}")
+    if sized["cuda"]["GPU-N"] is None:
+        raise AssertionError(f"fleet: GPU-N meets the SLO at no size up to "
+                             f"{FLEET_MAX_INSTANCES}: {sizing['cuda']['GPU-N']}")
+
+    # 3. the sized GPU-N fleet again with the obs column: its trace and windowed sums
+    n = sized["cuda"]["GPU-N"]
+    t0 = time.perf_counter()
+    res = FleetSim(grids["cuda"]["GPU-N"], n, obs=ObsConfig(level=1)).run(card_arrivals, seed=0)
+    seconds["obs_run"] = time.perf_counter() - t0
+    if not same_metrics(res.metrics, card_scans["GPU-N"][n]):
+        raise AssertionError("fleet: the obs column changed the sized fleet's metrics")
+    t0 = time.perf_counter()
+    doc = chrome_trace(res, max_requests=FLEET_TRACE_REQUESTS)
+    errors = validate_chrome_trace(doc)
+    seconds["trace"] = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"fleet: {len(errors)} trace schema errors: {errors[:5]}")
+    t0 = time.perf_counter()
+    window = res.metrics.makespan_s / 12
+    ts = res.timeseries(window, slo=card_slo)
+    seconds["timeseries"] = time.perf_counter() - t0
+    m = res.metrics
+    busy = sum(float((sl.t_end - sl.t_start).sum()) for sl in res.step_logs)
+    sums = {"arrived": int(ts.arrived.sum()), "completed": int(ts.completed.sum()),
+            "tokens": int(ts.tokens.sum()), "evictions": int(ts.evictions.sum()),
+            "ok": int(ts.ok.sum())}
+    want = {"arrived": len(res.batch), "completed": len(res.batch),
+            "tokens": int(res.batch.output_tokens.sum()), "evictions": m.total_evictions,
+            "ok": int(card_slo.ok_mask(m).sum())}
+    if sums != want or not np.isclose(ts.busy_s.sum(), busy, rtol=1e-9) \
+            or not np.isclose(ts.capacity_s.sum(), ts.n_instances * (ts.t1 - ts.t0), rtol=1e-9):
+        raise AssertionError(f"fleet: timeseries sums {sums} (busy {ts.busy_s.sum()}) against "
+                             f"the run's {want} (busy {busy})")
+
+    # 4. the batched core against the per-instance oracle on a cut of the trace
+    k, n_cut = FLEET_ORACLE
+    rb = card_arrivals.generate_batch(0)
+    cut = RequestBatch.from_arrays(rb.t_arrival[:k], rb.prompt_tokens[:k], rb.output_tokens[:k],
+                                   rids=rb.rid[:k])
+    t0 = time.perf_counter()
+    batched = FleetSim(grids["cuda"]["GPU-N"], n_cut).run(cut)
+    seconds["batched_cut"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = FleetSim(grids["cuda"]["GPU-N"], n_cut).run(cut, batched=False)
+    seconds["oracle_cut"] = time.perf_counter() - t0
+    if not fleet_results_equal(batched, oracle):
+        raise AssertionError("fleet: the batched core differs from the oracle")
+
+    # 5. launch.serve --sim on the card and with --device cpu
+    t0 = time.perf_counter()
+    with timed_scans() as scans["sim"], contextlib.redirect_stdout(io.StringIO()):
+        sim_rows = {"cuda": serve.main(["--sim", "--bench", "resnet"]),
+                    "cpu": serve.main(["--sim", "--bench", "resnet", "--device", "cpu"])}
+    seconds["sim"] = time.perf_counter() - t0
+    if sim_rows["cuda"] != sim_rows["cpu"]:
+        raise AssertionError(f"fleet: --sim rows differ: card {sim_rows['cuda']}, "
+                             f"host {sim_rows['cpu']}")
+
+    # 6. bottleneck attribution over mlperf.*, on the card against the host
+    t0 = time.perf_counter()
+    with timed_scans() as scans["explain"]:
+        reports = {side: explain(["mlperf.*"], device=side) for side in ("cuda", "cpu")}
+    seconds["explain"] = time.perf_counter() - t0
+    got, want = reports["cuda"].cells, reports["cpu"].cells
+    if [(c.workload, c.config, c.n_gpus) for c in got] != \
+            [(c.workload, c.config, c.n_gpus) for c in want]:
+        raise AssertionError("fleet: explain's cells differ between card and host")
+    worst, same_bits = 0.0, 0
+    for a, b in zip(got, want):
+        if a.bottleneck != b.bottleneck or a.bound_ops != b.bound_ops:
+            raise AssertionError(f"fleet: explain {a.workload} {a.config}: bound by {a.bottleneck} "
+                                 f"{a.bound_ops} on the card, {b.bottleneck} {b.bound_ops} "
+                                 f"on the host")
+        for r in a.bound_s:
+            x, y = a.bound_s[r], b.bound_s[r]
+            if abs(x - y) > EXPLAIN_RTOL * max(abs(x), abs(y)):
+                raise AssertionError(f"fleet: explain {a.workload} {a.config} {r}: card {x!r}, "
+                                     f"host {y!r}")
+            if x != y:
+                worst = max(worst, abs(x - y) / max(abs(x), abs(y)))
+        same_bits += a.bound_s == b.bound_s and a.time_s == b.time_s
+
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if any(launches.values()):
+        raise AssertionError(f"fleet: a kernel launched on a path that has none: {launches}")
+    row = {"phase": "fleet", "card": card, "requests": FLEET_REQUESTS,
+           "max_instances": FLEET_MAX_INSTANCES, "pricing": pricing,
+           "grids_equal_to_the_bit": equal, "ladders": sizing, "sized": sized,
+           "trace": {"requests": FLEET_TRACE_REQUESTS, "events": len(doc["traceEvents"]),
+                     "schema_errors": 0},
+           "timeseries": {"windows": len(ts), "window_s": window, **sums},
+           "oracle": {"requests": k, "instances": n_cut, "equal": True,
+                      "steps": sum(len(sl.t_start) for sl in batched.step_logs)},
+           "sim": {"rows": len(sim_rows["cuda"]), "equal": True},
+           "explain": {"cells": len(got), "workloads": len(reports["cuda"].workloads),
+                       "bound_s_max_rel_diff": worst, "cells_equal_to_the_bit": same_bits},
+           "scans": {part: {key: scan_totals(sc, key) for key in
+                            ("mattson_device", "traffic_device", "mattson_host", "traffic_host")}
+                     for part, sc in scans.items()},
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - held,
+           "launches": launches, "host_seconds": seconds,
+           "seconds": time.perf_counter() - t_phase}
+    clear_sweep_memos()
     free_memory()
     return row
 
@@ -4478,6 +4743,8 @@ def main() -> int:
         raise AssertionError(f"K5's mma instances must build without spills: {k5_mma}")
     phase_check(ptxas)
     emit(phase_sweep(card))
+    fleet_row = phase_fleet(card)
+    emit(fleet_row)
 
     cfg, hybrid = configs.get(ARCH), configs.get(HYBRID_ARCH)
     vlm, moe, mla = configs.get(VLM_ARCH), configs.get(MOE_ARCH), configs.get(MLA_ARCH)
@@ -4542,7 +4809,8 @@ def main() -> int:
                 "train_mesh_moe": train_mesh_moe_launches.get(name, 0),
                 "train_mesh_ssm": train_mesh_ssm_launches.get(name, 0),
                 "pipeline": pipeline_launches.get(name, 0),
-                "serve_mesh": serve_mesh_launches.get(name, 0)}
+                "serve_mesh": serve_mesh_launches.get(name, 0),
+                "fleet": fleet_row["launches"][name]}
 
     ffn_p, ffn_d, ffn_256 = hyb["ffn_prefill"], hyb["ffn_decode"], hyb["ffn_threshold"]
     ssd = hyb["ssd_prefill"]

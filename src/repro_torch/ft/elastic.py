@@ -66,8 +66,8 @@ class QueueDepthAutoscaler:
     The serving-side face of elastic run control: where :class:`ElasticRunner`
     resizes a training mesh across restarts, this policy resizes a serving
     fleet at a fixed cadence from what a real autoscaler can observe — queue
-    depth and running batch occupancy. Nothing in this package calls it yet:
-    the fleet simulator that drives it in the reference is not ported.
+    depth and running batch occupancy. The fleet simulator
+    (``repro_torch.serve.fleet``, ``serve.fleetbatch``) drives it.
 
     Thresholds are in units of FULL BATCHES per instance — a loaded-but-
     stable instance naturally runs with a batch or two waiting, so absolute

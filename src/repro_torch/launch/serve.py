@@ -34,6 +34,17 @@ card, gloo with ``--device cpu``); several ranks are started by
 caches placed as the self caches are (zeros, as the reference's engine
 leaves them). Without ``--mesh-model`` nothing is distributed: one device,
 plain tensors.
+
+``--sim`` switches to the analytic request-level simulator instead of the
+model: Poisson arrivals against ``--instances`` simulated instances per COPA
+config of an MLPerf serving scenario (``--bench``), reporting latency
+percentiles and SLO goodput (see ``repro_torch.serve.sim`` /
+``repro_torch.serve.fleet``). Its cost grids are priced on the card
+(``serve_cost_grids``' two batched scans); ``--device cpu`` prices them
+with the NumPy scans, equal to the reference's grids to the bit:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --sim --bench resnet
+    PYTHONPATH=src python -m repro_torch.launch.serve --sim --bench resnet --device cpu
 """
 from __future__ import annotations
 
@@ -126,6 +137,33 @@ class ServingEngine:
         return torch.cat(out, dim=1)
 
 
+def sim_main(args):
+    """Analytic serving simulation of one MLPerf bench across COPA configs."""
+    from repro_torch.core import copa
+    from repro_torch.core.sweep import serve_cost_grids
+    from repro_torch.serve.fleet import latency_goodput_rows
+    from repro_torch.serve.sim import ArrivalSpec, Slo
+
+    cfgs = [copa.TABLE_V_BY_NAME[n] for n in args.sim_configs.split(",")]
+    grids = serve_cost_grids(args.bench, cfgs, device=args.device)
+    base = next(iter(grids.values()))
+    sat = base.saturated_rps()
+    rates = [f * sat for f in (0.5, 0.8, 1.1)]
+    arrivals = ArrivalSpec(name=f"launch.{args.bench}", rate=sat,
+                           n_requests=args.requests)
+    slo = Slo(ttft_s=4 * base.step_time(base.max_batch), percentile=95)
+    rows = latency_goodput_rows(grids, arrivals, rates, slo,
+                                n_instances=args.instances, seed=0)
+    print(f"{args.bench}: {args.instances} instance(s)/config, "
+          f"SLO p95 TTFT<={slo.ttft_s*1e3:.2f}ms")
+    for r in rows:
+        print(f"{r['config']:<12} rate={r['rate_rps']:>9.1f}/s "
+              f"ttft p50/p99 {r['ttft_p50_ms']:.2f}/{r['ttft_p99_ms']:.2f}ms "
+              f"goodput {r['goodput_rps']:.1f}/s "
+              f"{'ok' if r['slo_met'] else 'SLO MISS'}")
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
@@ -140,11 +178,25 @@ def main(argv=None):
                     help="SwiGLU MLPs through the fused kernel (K4)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (an error without one); "
-                         "'cpu' runs the kernels' plain versions")
+                         "'cpu' runs the kernels' plain versions (with --sim: "
+                         "the NumPy scans)")
     ap.add_argument("--mesh-model", type=int, default=None,
                     help="serve through a (data, model) device mesh with this many ranks on "
                          "'model' (default: no mesh, one device)")
+    ap.add_argument("--sim", action="store_true",
+                    help="run the analytic request-level simulator instead "
+                         "of the model")
+    ap.add_argument("--bench", default="resnet",
+                    help="[--sim] MLPerf serving bench (serve.mlperf.<bench>)")
+    ap.add_argument("--sim-configs", default="GPU-N,HBM+L3",
+                    help="[--sim] comma-separated Table-V config names")
+    ap.add_argument("--instances", type=int, default=1,
+                    help="[--sim] fleet size per config")
+    ap.add_argument("--requests", type=int, default=2000)
     args = ap.parse_args(argv)
+
+    if args.sim:
+        return sim_main(args)
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)

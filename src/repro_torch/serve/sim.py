@@ -49,10 +49,11 @@ docstring for the paged-KV model and the parity contract (``page_size=1``
 with oversubscription disabled reproduces the reservation path
 bit-for-bit).
 
-The JAX reference package's module, host-side and free of tensor work. The
-fleet simulator (``serve.fleet``, ``serve.fleetbatch``) and the windowed
-``obs`` rollup (the reference's ``SimResult.timeseries``) are not ported
-yet.
+The JAX reference package's module, host-side and free of tensor work, as
+are the fleet simulator built on it (``serve.fleet``, ``serve.fleetbatch``)
+and the windowed ``obs`` rollup (:meth:`SimResult.timeseries`). Only the
+cost grids the simulator reads are priced on a device
+(``core.sweep.serve_cost_grids``).
 """
 from __future__ import annotations
 
@@ -743,6 +744,11 @@ class SimResult:
     requests: list[Request]
     metrics: SimMetrics
     step_log: StepLog
+
+    def timeseries(self, window_s: float, *, slo: Slo | None = None):
+        """Windowed :class:`repro_torch.obs.series.MetricSeries` rollup."""
+        from repro_torch.obs.series import timeseries
+        return timeseries(self, window_s, slo=slo)
 
 
 # -- the single-instance event loop --------------------------------------------

@@ -3,6 +3,7 @@ for the card unless told otherwise, and on the CPU no kernel is launched."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -17,19 +18,64 @@ SOURCES = PORT_SOURCES + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "msgpack", "ml_dtypes"}
 
 
-def imported_roots(path):
+MODULE_NAME = re.compile(r"[A-Za-z_]\w*(\.[A-Za-z_]\w*)*")
+IMPORT_CALLS = {"import_module", "__import__"}
+
+
+def string_imports(tree):
+    """Module names a source imports by string: the first argument of
+    ``importlib.import_module`` or ``__import__``, and the values of a lazy
+    import table (a dict literal whose values are all dotted module names,
+    as ``obs._HOMES``)."""
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and node.args:
+            func = node.func
+            called = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", None)
+            arg = node.args[0]
+            if called in IMPORT_CALLS and isinstance(arg, ast.Constant) \
+                    and isinstance(arg.value, str):
+                names.append(arg.value)
+        elif isinstance(node, ast.Dict) and node.values:
+            values = [v.value for v in node.values
+                      if isinstance(v, ast.Constant) and isinstance(v.value, str)]
+            if len(values) == len(node.values) and all(
+                    "." in v and MODULE_NAME.fullmatch(v) for v in values):
+                names.extend(values)
+    return names
+
+
+def imported_roots(path, source=None):
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    tree = ast.parse(source if source is not None else path.read_text(), str(path))
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             roots.add(node.module.split(".")[0])
+    roots.update(name.split(".")[0] for name in string_imports(tree))
     return roots
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_and_no_reference_package(path):
     assert not imported_roots(path) & FORBIDDEN
+
+
+def test_string_imports_are_read():
+    """A module named in a string counts as imported: an ``import_module``
+    target, an ``__import__`` argument, a lazy table's value."""
+    planted = ("import importlib\n"
+               "_HOMES = {'explain': 'repro.obs.attribution', 'Timeline': 'repro_torch.obs.x'}\n"
+               "def f():\n"
+               "    importlib.import_module('jax.numpy')\n"
+               "    __import__('ml_dtypes')\n"
+               "doc = {'schema': 'repro.obs.result/v1', 'generator': 'repro.obs', 'n': 1}\n")
+    roots = imported_roots(pathlib.Path("planted.py"), planted)
+    assert {"repro", "jax", "ml_dtypes", "repro_torch", "importlib"} == roots
+    # the port's own lazy table is read, and names only the port
+    homes = string_imports(ast.parse((PORT / "obs" / "__init__.py").read_text()))
+    assert len(homes) == 13 and all(h.startswith("repro_torch.") for h in homes)
 
 
 def test_every_module_is_checked():
@@ -55,7 +101,9 @@ def test_every_module_is_checked():
                    "core/perfmodel.py", "workloads/__init__.py", "workloads/common.py",
                    "workloads/hpc.py", "workloads/mlperf.py", "workloads/lm.py",
                    "workloads/kernels.py", "workloads/registry.py", "serve/paged.py",
-                   "serve/sim.py"):
+                   "serve/sim.py", "serve/fleet.py", "serve/fleetbatch.py", "obs/__init__.py",
+                   "obs/__main__.py", "obs/attribution.py", "obs/cli.py", "obs/series.py",
+                   "obs/store.py", "obs/timeline.py"):
         assert needed in names
     for cu in ("flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
                "ssd_scan.cu", "fused_ffn.cu", "mma_tile.cuh"):
@@ -146,6 +194,23 @@ def test_analytic_entry_points_raise_without_a_card():
         msm.analyze(traces[0])
     with pytest.raises(RuntimeError, match="CUDA"):
         sweep.SweepEngine(names, device="cuda").run()
+    # the fleet's pricing, and bottleneck attribution, ask for the card too
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--sim"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--sim", "--bench", "gnmt", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        obs.explain(["mlperf.infer.*.large"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        obs.explain(["mlperf.infer.*.large"], device="cuda")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.obs", "explain",
+                          "mlperf.infer.gnmt.large"], capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "bound by" not in out.stdout
     # asked for, the CPU runs the NumPy scans and keeps nothing on a device
     suite = sweep.suite_analysis_for(traces, device="cpu")
     assert suite.batch.device is None

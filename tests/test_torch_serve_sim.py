@@ -141,3 +141,42 @@ def test_paged_allocator_equals_reference():
     assert vars(got).keys() == vars(want).keys()
     for k in vars(got):
         assert repr(getattr(got, k)) == repr(getattr(want, k)), k
+
+
+@pytest.mark.parametrize("argv", [["--bench", "resnet"],
+                                  ["--bench", "gnmt", "--instances", "2", "--requests", "600"],
+                                  ["--bench", "resnet", "--sim-configs", "GPU-N,HBML+L3,HBM+L3",
+                                   "--requests", "500"]],
+                         ids=["resnet", "gnmt_fleet", "three_configs"])
+def test_launch_serve_sim_rows_equal_reference(argv, capsys):
+    """``launch.serve --sim --device cpu``: the reference's ``sim_main`` rows
+    and printout, to the bit."""
+    from repro.launch import serve as rserve
+    from repro_torch.launch import serve
+
+    got = serve.main(["--sim", "--device", "cpu", *argv])
+    got_out = capsys.readouterr().out
+    want = rserve.main(["--sim", *argv])
+    assert got == want
+    assert got_out == capsys.readouterr().out
+    n_cfgs = len(argv[argv.index("--sim-configs") + 1].split(",")) if "--sim-configs" in argv \
+        else 2
+    assert len(got) == 3 * n_cfgs
+
+
+def test_sim_result_timeseries_equals_reference():
+    """``SimResult.timeseries``, the single-instance rollup."""
+    got_g = grids("port", "gnmt", **GRID_KW["gnmt"])["HBM+L3"]
+    want_g = grids("ref", "gnmt", **GRID_KW["gnmt"])["HBM+L3"]
+    spec, rspec = registry.arrivals("arrivals.poisson.r64"), rregistry.arrivals(
+        "arrivals.poisson.r64")
+    got = sim.simulate(spec.generate(seed=2), got_g, obs=sim.ObsConfig(level=1))
+    want = rsim.simulate(rspec.generate(seed=2), want_g, obs=rsim.ObsConfig(level=1))
+    window = got.metrics.makespan_s / 9
+    a = got.timeseries(window, slo=sim.Slo(ttft_s=0.01))
+    b = want.timeseries(window, slo=rsim.Slo(ttft_s=0.01))
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert np.array_equal(x, y, equal_nan=True) if isinstance(x, np.ndarray) else x == y, \
+            f.name
+    assert int(a.completed.sum()) == len(got.requests) and a.n_instances == 1
